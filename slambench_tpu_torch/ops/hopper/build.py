@@ -1,0 +1,107 @@
+"""Build and load the hand-written Hopper kernels.
+
+At first use, ``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into one
+shared library with a plain C interface under ``_build/`` (listed in
+``.gitignore``), named by a hash of the sources and flags, and the
+library is loaded with ``ctypes``. A plain C interface keeps PyTorch's
+headers out of the build, so it takes seconds rather than minutes.
+
+There is no fallback: a missing ``nvcc`` or a failed build raises with
+the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib: Optional[ctypes.CDLL] = None
+# What the last build printed (ptxas register / spill report) and took.
+build_log = ""
+build_seconds = 0.0
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: $PATH first, then $CUDA_HOME and /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        cand = os.path.join(root, "bin", "nvcc") if root else ""
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (searched $PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+        "the Hopper kernels are compiled from slambench_tpu_torch/ops/hopper/"
+        "csrc at first use and there is no prebuilt or fallback path")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.slb_bilateral_f32.argtypes = [vp, vp, ci, ci, vp, cf, vp]
+    lib.slb_bilateral_f32.restype = ci
+    lib.slb_reduce_track_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
+    lib.slb_reduce_track_f32.restype = ci
+    return lib
+
+
+def build() -> str:
+    """Compile the sources if no library of this hash exists; returns
+    the library path."""
+    global build_log, build_seconds
+    out = os.path.join(BUILD_DIR, f"libslb_hopper_{_digest()}.so")
+    if os.path.exists(out):
+        return out
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.monotonic() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+            f"{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        _lib = _bind(ctypes.CDLL(build()))
+    return _lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
+                           f"{status}")

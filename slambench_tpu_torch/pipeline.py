@@ -1,0 +1,298 @@
+"""The KinectFusion frame step in PyTorch (port of
+``slambench_tpu/pipeline.py``: ``KFusionState`` and ``KFusion``).
+
+``KFusionState`` is a frozen dataclass of tensors with the JAX state's
+leaf names, dtypes and layouts, so a state converts between the two
+packages leaf for leaf (``convert.py``). ``KFusion`` runs the four
+phases of the reference's ``Kfusion`` class on one ``torch.device``:
+
+* preprocessing — mm2meters, then the bilateral filter (kernel K1);
+* tracking — half-sample pyramid, vertex/normal maps, coarse-to-fine
+  ICP with the K2 reduction, checkPose;
+* integration — TSDF fusion and the min-mip rebuild;
+* raycasting — the min-mip skip march for the next reference maps.
+
+The ICP loop runs each level's fixed iteration budget with no host read:
+a level that converges freezes its pose, reduction and result codes from
+the converging iteration on (the JAX ``while_loop`` applies the update of
+the step that reports convergence, then stops).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from slambench_tpu_torch import params
+from slambench_tpu_torch.geometry import (
+    get_camera_matrix, get_inverse_camera_matrix, mat4mul, rigid_inverse,
+    translation_pose,
+)
+from slambench_tpu_torch.ops.hopper.bilateral import bilateral_filter_cuda
+from slambench_tpu_torch.ops.integrate import integrate
+from slambench_tpu_torch.ops.preprocess import (
+    half_sample_robust, make_gaussian, mm2meters,
+)
+from slambench_tpu_torch.ops.raycast_fast import make_min_mip, raycast_fast_maps
+from slambench_tpu_torch.ops.solve import check_pose, update_pose
+from slambench_tpu_torch.ops.track import track_and_reduce
+from slambench_tpu_torch.ops.vertex import depth2vertex, vertex2normal
+from slambench_tpu_torch.volume import init_volume
+
+BACKENDS = ("jnp", "fast", "pallas", "auto")
+
+
+@dataclasses.dataclass(frozen=True)
+class KFusionState:
+    """Everything that persists across frames, leaf for leaf the JAX
+    package's ``KFusionState``."""
+    tsdf: torch.Tensor          # int16 [Z, Y, X]
+    weight: torch.Tensor        # int8 [Z, Y, X]
+    mip: torch.Tensor           # int16 [Z/8, Y/8, X/8] conservative min-mip
+    pose: torch.Tensor          # f32 [4, 4]
+    old_pose: torch.Tensor      # f32 [4, 4]
+    raycast_pose: torch.Tensor  # f32 [4, 4]
+    ref_vertex: torch.Tensor    # f32 [3, H, W] raycast vertex map
+    ref_normal: torch.Tensor    # f32 [3, H, W] raycast normal map
+    prev_t_hit: torch.Tensor    # f32 [H, W] last raycast hit distances
+    float_depth: torch.Tensor   # f32 [H, W] metres (mm2meters output)
+    scaled_depth0: torch.Tensor  # f32 [H, W] bilateral-filtered depth
+    track_result: torch.Tensor  # i32 [H, W] last ICP result codes
+    reduction: torch.Tensor     # f32 [32] packed normal equations
+    tracked: torch.Tensor       # bool []
+    integrated: torch.Tensor    # bool []
+
+
+class KFusion:
+    """Pipeline driver for one run configuration on one device."""
+
+    def __init__(self,
+                 computation_size: Tuple[int, int],      # (W, H) ref order
+                 volume_resolution: Tuple[int, int, int],
+                 volume_dimensions: Tuple[float, float, float],
+                 init_pose: Sequence[float],
+                 pyramid: Sequence[int],
+                 camera: Sequence[float],
+                 mu: float = 0.1,
+                 icp_threshold: float = 1e-5,
+                 backend: str = "fast",
+                 motion_model: str = "none",
+                 *,
+                 device: torch.device):
+        # "fast", "pallas" and "auto" name the JAX package's tiers; here
+        # they all run the same path (min-mip raycast, kernels K1/K2 on
+        # CUDA). "jnp" is the oracle raycast, not ported yet.
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"unknown backend {backend!r}: use jnp|fast|pallas|auto")
+        if backend == "jnp":
+            raise NotImplementedError(
+                "backend 'jnp' (the oracle raycast, ops/raycast.py "
+                "raycast_maps) is not ported yet: ROADMAP.md, queue 1, "
+                "'ops/raycast.py oracle (jnp tier)'")
+        if motion_model != "none":
+            raise NotImplementedError(
+                f"motion_model {motion_model!r} is not ported yet "
+                "(ROADMAP.md, queue 1, item 8: cv_predict)")
+        self.device = torch.device(device)
+        W, H = computation_size
+        self.W, self.H = W, H
+        self.volume_resolution = tuple(int(v) for v in volume_resolution)
+        self.volume_dimensions = tuple(float(d) for d in volume_dimensions)
+        self.init_pose = tuple(float(p) for p in init_pose)
+        self.iterations = tuple(int(i) for i in pyramid)
+        self.camera = tuple(float(c) for c in camera)
+        self.mu = float(mu)
+        self.icp_threshold = float(icp_threshold)
+        self.backend = backend
+        self.motion_model = motion_model
+        # Fine ray-march step = min(dim) / max(res) (reference: kernels.h:116).
+        self.step = min(self.volume_dimensions) / max(self.volume_resolution)
+        self.gaussian = make_gaussian()
+        self._levels = len(self.iterations)
+        self._k = torch.tensor(self.camera, dtype=torch.float32,
+                               device=self.device)
+
+    # ------------------------------------------------------------------ #
+
+    def init_state(self) -> KFusionState:
+        """Fresh state; ``raycast_pose`` starts at the initial pose, as in
+        the JAX package (the reference inverts a zero matrix there)."""
+        dev = self.device
+        tsdf, weight = init_volume(self.volume_resolution, dev)
+        pose = translation_pose(self.init_pose, dev)
+        H, W = self.H, self.W
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        return KFusionState(
+            tsdf=tsdf, weight=weight, mip=make_min_mip(tsdf),
+            pose=pose.clone(), old_pose=pose.clone(),
+            raycast_pose=pose.clone(),
+            ref_vertex=zeros(3, H, W), ref_normal=zeros(3, H, W),
+            prev_t_hit=zeros(H, W), float_depth=zeros(H, W),
+            scaled_depth0=zeros(H, W),
+            track_result=zeros(H, W, dtype=torch.int32),
+            reduction=zeros(32),
+            tracked=zeros(dtype=torch.bool),
+            integrated=zeros(dtype=torch.bool))
+
+    def to_device(self, depth) -> torch.Tensor:
+        """Upload a uint16 millimetre depth frame (numpy or tensor) as
+        int32 on this pipeline's device (torch has few uint16 ops)."""
+        if isinstance(depth, np.ndarray):
+            depth = torch.from_numpy(np.ascontiguousarray(depth, np.int32))
+        return depth.to(device=self.device, dtype=torch.int32)
+
+    # ---------------------------- phases ------------------------------ #
+
+    def preprocessing(self, state: KFusionState,
+                      input_depth: torch.Tensor) -> KFusionState:
+        """mm->m conversion + bilateral filter
+        (reference: cpp/kernels.cpp:915-922)."""
+        ratio = input_depth.shape[1] // self.W
+        fd = mm2meters(input_depth, ratio).contiguous()
+        sd0 = bilateral_filter_cuda(fd, self.gaussian, params.E_DELTA,
+                                    params.RADIUS)
+        return dataclasses.replace(state, float_depth=fd, scaled_depth0=sd0)
+
+    def _build_pyramid(self, sd0: torch.Tensor) -> List[torch.Tensor]:
+        pyr = [sd0]
+        for _ in range(1, self._levels):
+            pyr.append(half_sample_robust(pyr[-1], params.E_DELTA * 3, 1))
+        return pyr
+
+    def tracking(self, state: KFusionState) -> KFusionState:
+        """Pyramid + per-level vertex/normal maps + coarse-to-fine ICP +
+        checkPose (reference: cpp/kernels.cpp:924-971)."""
+        pyr = self._build_pyramid(state.scaled_depth0)
+        verts, norms = [], []
+        for i in range(self._levels):
+            inv_k = get_inverse_camera_matrix(self._k / float(1 << i))
+            v = depth2vertex(pyr[i], inv_k)
+            verts.append(v)
+            norms.append(vertex2normal(v))
+
+        old_pose = state.pose
+        view = mat4mul(get_camera_matrix(self._k),
+                       rigid_inverse(state.raycast_pose))
+        pose = state.pose
+        reduction = state.reduction
+        track_result = state.track_result
+
+        for level in reversed(range(self._levels)):
+            h, w = self.H >> level, self.W >> level
+            level_result = torch.zeros((h, w), dtype=torch.int32,
+                                       device=self.device)
+            done = torch.zeros((), dtype=torch.bool, device=self.device)
+            for _ in range(self.iterations[level]):
+                red, data = track_and_reduce(
+                    verts[level], norms[level], state.ref_vertex,
+                    state.ref_normal, pose, view)
+                new_pose, conv = update_pose(pose, red, self.icp_threshold)
+                pose = torch.where(done, pose, new_pose)
+                reduction = torch.where(done, reduction, red)
+                level_result = torch.where(done, level_result,
+                                           data["result"])
+                done = done | conv
+            if level == 0:
+                track_result = level_result
+
+        pose, tracked = check_pose(pose, old_pose, reduction,
+                                   (self.H, self.W))
+        return dataclasses.replace(
+            state, pose=pose, old_pose=old_pose, reduction=reduction,
+            track_result=track_result, tracked=tracked)
+
+    def skip_tracking(self, state: KFusionState) -> KFusionState:
+        """A frame the tracking rate skips: only ``tracked`` changes."""
+        return dataclasses.replace(
+            state, tracked=torch.zeros((), dtype=torch.bool,
+                                       device=self.device))
+
+    def integration(self, state: KFusionState, *, integrate_frame: bool,
+                    force_integrate: bool) -> KFusionState:
+        """TSDF fusion gated on pose acceptance and the integration rate
+        (reference: cpp/kernels.cpp:988-1004). The accept flag is read on
+        the host only when the gates leave it to decide."""
+        pose, ok = check_pose(state.pose, state.old_pose, state.reduction,
+                              (self.H, self.W))
+        if force_integrate:
+            should = True
+        elif not integrate_frame:
+            should = False
+        else:
+            should = bool(ok)
+        tsdf, weight, mip = state.tsdf, state.weight, state.mip
+        if should:
+            tsdf, weight = integrate(
+                tsdf, weight, state.float_depth, rigid_inverse(pose),
+                get_camera_matrix(self._k), self.mu, params.MAX_WEIGHT,
+                self.volume_dimensions)
+            mip = make_min_mip(tsdf)
+        return dataclasses.replace(
+            state, pose=pose, tsdf=tsdf, weight=weight, mip=mip,
+            integrated=torch.full((), should, dtype=torch.bool,
+                                  device=self.device))
+
+    def raycasting(self, state: KFusionState) -> KFusionState:
+        """Surface prediction from the current pose
+        (reference: cpp/kernels.cpp:973-986)."""
+        view = mat4mul(state.pose, get_inverse_camera_matrix(self._k))
+        vertex, normal, t_hit = raycast_fast_maps(
+            state.tsdf, state.mip, self.volume_dimensions, view,
+            (self.H, self.W), params.NEAR_PLANE, params.FAR_PLANE,
+            self.step, 0.75 * self.mu)
+        return dataclasses.replace(
+            state, raycast_pose=state.pose, ref_vertex=vertex,
+            ref_normal=normal, prev_t_hit=t_hit)
+
+    def compute_frame(self, state: KFusionState, input_depth: torch.Tensor,
+                      *, tracking_on: bool, integrate_frame: bool,
+                      force_integrate: bool, raycast_on: bool
+                      ) -> KFusionState:
+        """Preprocess -> track -> integrate -> raycast for one frame
+        (reference: cpp/kernels.cpp:1048-1055 ``computeFrame``)."""
+        state = self.preprocessing(state, input_depth)
+        state = self.tracking(state) if tracking_on \
+            else self.skip_tracking(state)
+        state = self.integration(state, integrate_frame=integrate_frame,
+                                 force_integrate=force_integrate)
+        if raycast_on:
+            state = self.raycasting(state)
+        return state
+
+    def process_frame(self, state: KFusionState, input_depth, frame: int,
+                      tracking_rate: int = 1, integration_rate: int = 2
+                      ) -> KFusionState:
+        """One frame with the reference's host-side gates
+        (reference: benchmark.cpp:125-158, cpp/kernels.cpp:927,994,977)."""
+        return self.compute_frame(
+            state, self.to_device(input_depth),
+            **frame_gates(frame, tracking_rate, integration_rate))
+
+    # ---------------------------- utilities --------------------------- #
+
+    def get_position(self, state: KFusionState) -> np.ndarray:
+        """Pose translation relative to the initial pose
+        (reference: kernels.h:150-157)."""
+        t = state.pose[:3, 3].cpu().numpy()
+        return t - np.asarray(self.init_pose, np.float32)
+
+    def dump_volume(self, state: KFusionState, filename: str) -> None:
+        """TSDF shorts, x-fastest: byte-compatible with the reference dump
+        (reference: cpp/kernels.cpp:1006-1030)."""
+        state.tsdf.cpu().numpy().astype("<i2").tofile(filename)
+
+
+def frame_gates(frame: int, tracking_rate: int = 1,
+                integration_rate: int = 2) -> dict:
+    """The reference's per-frame gates as ``compute_frame`` keywords."""
+    return dict(tracking_on=(frame % tracking_rate == 0),
+                integrate_frame=(frame % integration_rate == 0),
+                force_integrate=(frame <= 3),
+                raycast_on=(frame > 2))

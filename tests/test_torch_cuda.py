@@ -1,0 +1,112 @@
+"""The port on a CUDA card: kernels K1/K2 against their plain twins at
+the main path's shapes, and a short end-to-end run through the CLI.
+
+Imports torch and the port only (no JAX), so it runs on the card's
+machine, where JAX is absent, with
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
+
+Without a card every test skips."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from slambench_tpu_torch import geometry as G  # noqa: E402
+from slambench_tpu_torch.io.synthetic import (  # noqa: E402
+    SyntheticScene, generate_dataset, orbit_trajectory, render_depth_frame,
+)
+from slambench_tpu_torch.ops.hopper import bilateral, reduce  # noqa: E402
+from slambench_tpu_torch.ops.preprocess import (  # noqa: E402
+    half_sample_robust, make_gaussian, mm2meters,
+)
+from slambench_tpu_torch.ops.track import track  # noqa: E402
+from slambench_tpu_torch.ops.vertex import depth2vertex, vertex2normal  # noqa: E402
+from slambench_tpu_torch.policy import apply_precision_policy  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    apply_precision_policy()
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def frame(dev):
+    """A synthetic 640x480 frame at compute-size ratio 2: 240x320 metres."""
+    poses = orbit_trajectory(12, [0.34 * 4.8, 0.5 * 4.8, 0.24 * 4.8])
+    mm = render_depth_frame(SyntheticScene(), poses[11],
+                            (481.2, 480.0, 320.0, 240.0), (640, 480), dev)
+    return mm2meters(torch.from_numpy(mm.astype(np.int32)).to(dev), 2) \
+        .contiguous()
+
+
+def test_bilateral_kernel_matches_plain(frame):
+    g = make_gaussian()
+    before = bilateral.launches
+    got = bilateral.bilateral_filter_cuda(frame, g)
+    assert bilateral.launches == before + 1
+    torch.testing.assert_close(got, bilateral.plain(frame, g),
+                               rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_reduce_kernel_matches_plain(frame, dev, level):
+    k = torch.tensor([240.6, 240.0, 160.0, 120.0], device=dev)
+    d = bilateral.plain(frame, make_gaussian())
+    pyr = [d]
+    for _ in range(level):
+        pyr.append(half_sample_robust(pyr[-1], 0.3, 1))
+    ref_v = depth2vertex(d, G.get_inverse_camera_matrix(k))
+    v = depth2vertex(pyr[-1], G.get_inverse_camera_matrix(k / (1 << level)))
+    pose = G.se3_exp(torch.tensor([0.01, -0.005, 0.008, 0.004, -0.003,
+                                   0.002], device=dev))
+    data = track(v, vertex2normal(v), ref_v, vertex2normal(ref_v), pose,
+                 G.get_camera_matrix(k))
+    before = reduce.launches
+    got = reduce.reduce_track_cuda(data)
+    assert reduce.launches == before + 1
+    torch.testing.assert_close(got, reduce.plain(data), rtol=1e-4, atol=1e-3)
+    assert int(got[28]) > 0
+
+
+def test_reduce_kernel_ragged_and_random_codes(dev):
+    rng = np.random.default_rng(0)
+    for h, w in ((13, 17), (240, 320)):
+        data = {"result": rng.choice([1, -1, -2, -3, -4, -5], size=(h, w))
+                .astype(np.int32),
+                "error": rng.standard_normal((h, w)).astype(np.float32),
+                "J": rng.standard_normal((6, h, w)).astype(np.float32)}
+        data = {k: torch.from_numpy(a).to(dev) for k, a in data.items()}
+        got = reduce.reduce_track_cuda(data)
+        torch.testing.assert_close(got, reduce.plain(data), rtol=1e-4,
+                                   atol=1e-3)
+        # Two stages, fixed order: the same input gives the same bits.
+        assert torch.equal(got, reduce.reduce_track_cuda(data))
+
+
+def test_cli_on_card(dev, tmp_path):
+    """12 frames of the 160x120 clip at 64^3 through the CLI on the card:
+    tracked from frame 4, one K1 launch per frame, 19 K2 per frame."""
+    from slambench_tpu_torch.config import parse_args
+    from slambench_tpu_torch.eval.check_pos import (
+        compute_ate, load_gt_trajectory, parse_benchmark_log,
+    )
+    from slambench_tpu_torch.frontend.benchmark import run
+    man = generate_dataset(str(tmp_path), dev, n_frames=12,
+                           image_size=(160, 120), amp=0.12)
+    log_path = str(tmp_path / "b.log")
+    cfg = parse_args(["-i", man["raw"], "-o", log_path, "-v", "64",
+                      "-s", "4.8", "-p", "0.34,0.5,0.24", "-c", "1", "-r", "1",
+                      "-k", "120.3,120.0,80,60"])
+    bilateral.launches = reduce.launches = 0
+    run(cfg, dev, quiet=True)
+    assert bilateral.launches == 12 and reduce.launches == 12 * 19
+    log = parse_benchmark_log(log_path)
+    assert log["tracked"][4:].all()
+    assert compute_ate(log, load_gt_trajectory(man["gt"]))["ATE"].mean() < 0.06
