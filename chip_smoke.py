@@ -10,25 +10,31 @@ no ``ok`` line):
 1. device — require CUDA, print the card (nvidia-smi name, power limit),
    torch and CUDA versions; apply the full-f32 precision policy;
 2. build — compile the hand-written kernels (K1 bilateral, K2 ICP
-   reduction) from ``slambench_tpu_torch/ops/hopper/csrc`` with nvcc;
-3. kernels — each kernel against its plain-torch version on the card at
-   the main path's shapes (a synthetic 640x480 frame at compute-size
-   ratio 2, its pyramid and real ICP TrackData), with median times over
-   50 CUDA-event-timed calls;
+   reduction, G1-G4 gathers) from ``slambench_tpu_torch/ops/hopper/csrc``
+   with nvcc, one process per source, all started together;
+3. kernels — each kernel against its plain-torch version on the card: K1
+   and K2 at the frame's shapes (a synthetic 640x480 frame at compute-size
+   ratio 2, its pyramid and real ICP TrackData), timed as one CUDA-event
+   pair around back-to-back launches (``tools/timing.py``); G1-G4 in every
+   mode at the gather probes' shapes, which must agree exactly;
 4. main path — synthesise the traj2-like clip on the card, run the
    port's CLI ``run()`` phased at 256^3 / 4.8 m / 320x240 / pyramid
    10,5,4 / -r 1, check the ATE with the port's check_pos, the tracked
    flags, and that the launch counts of K1 and K2 match the frames and
    ICP iterations the run made;
-5. report — one JSON line of kernel results, the nvidia-smi line, and
-   the final ``{"ok": true, ...}`` line.
+5. probe path — run the gather probes (``tools/mosaic_probe.py``, the
+   counterpart of the TPU tool that held the Pallas gathers P1-P3, and
+   ``tools/gather_probe.py``) at their full shapes; every entry must
+   agree with its plain twin and every kernel's launch count must move;
+6. report — one JSON line of kernel results (time, plain and library
+   time, bound, launches), the nvidia-smi line, and the final
+   ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -42,8 +48,6 @@ PYRAMID = (10, 5, 4)
 CLI_ARGS = ["-s", "4.8", "-p", "0.34,0.5,0.24", "-z", "4", "-c", "2",
             "-r", "1", "-k", "481.2,480,320,240", "-v", "256,256,256"]
 ATE_MEAN_BOUND = 0.03           # metres, the synth2 class (ROADMAP.md)
-K1_TOL = dict(rtol=1e-5, atol=1e-5)
-K2_TOL = dict(rtol=1e-4, atol=1e-3)   # tests/test_pallas.py tolerances
 
 
 def log(msg: str) -> None:
@@ -59,21 +63,14 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, n: int = 50, warmup: int = 5) -> float:
-    """Median of ``n`` per-call CUDA-event times, after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def time_ms(label: str, fn, reps: int = 200) -> float:
+    """Per-launch ms of ``reps`` back-to-back calls between one CUDA-event
+    pair (tools/timing.py), median of five runs."""
+    from slambench_tpu_torch.tools.timing import per_launch_ms
+    ms, paced = per_launch_ms(fn, reps)
+    if paced:
+        log(f"  ({label}: the host paced the launches; the time includes it)")
+    return ms
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
@@ -92,7 +89,7 @@ def phase_device() -> str:
                          "smoke test needs a CUDA card")
     from slambench_tpu_torch.policy import apply_precision_policy
     smi = nvidia_smi_line()
-    log(f"[1/5 device] {smi} | torch {torch.__version__} | CUDA "
+    log(f"[1/6 device] {smi} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     apply_precision_policy()
     return smi
@@ -103,7 +100,7 @@ def phase_build() -> None:
     t0 = time.monotonic()
     path = build.build()
     build.load()
-    log(f"[2/5 build] {os.path.relpath(path)} in "
+    log(f"[2/6 build] {os.path.relpath(path)} in "
         f"{time.monotonic() - t0:.2f} s (nvcc {build.build_seconds:.2f} s)")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
@@ -121,8 +118,12 @@ def phase_kernels(dev: torch.device) -> dict:
     )
     from slambench_tpu_torch.ops.track import track
     from slambench_tpu_torch.ops.vertex import depth2vertex, vertex2normal
+    from slambench_tpu_torch.tools.mosaic_probe import (
+        K1_OPS_PER_TAP, K1_TOL, K2_TOL,
+    )
+    from slambench_tpu_torch.tools.timing import bound_by, bound_ms
 
-    log("[3/5 kernels] kernel vs plain torch on the card")
+    log("[3/6 kernels] kernel vs plain torch on the card")
     dim = (4.8, 4.8, 4.8)
     poses = orbit_trajectory(12, [0.34 * 4.8, 0.5 * 4.8, 0.24 * 4.8])
     depth_mm = render_depth_frame(SyntheticScene(dim=dim), poses[11],
@@ -135,9 +136,12 @@ def phase_kernels(dev: torch.device) -> dict:
     got = bilateral.bilateral_filter_cuda(fd, lut)
     want = bilateral.plain(fd, lut)
     k1_err = compare("K1 bilateral 240x320", got, want, K1_TOL)
-    k1_ms = median_ms(lambda: bilateral.bilateral_filter_cuda(fd, lut))
-    k1_plain = median_ms(lambda: bilateral.plain(fd, lut))
-    log(f"  K1 240x320: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms")
+    k1_ms = time_ms("K1", lambda: bilateral.bilateral_filter_cuda(fd, lut))
+    k1_plain = time_ms("K1 plain", lambda: bilateral.plain(fd, lut), reps=20)
+    k1_bytes, k1_ops = 2 * 4 * fd.numel(), K1_OPS_PER_TAP * 25 * fd.numel()
+    log(f"  K1 240x320: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, "
+        f"bound {bound_ms(k1_bytes, k1_ops):.5f} ms "
+        f"({bound_by(k1_bytes, k1_ops)})")
 
     # Real TrackData per pyramid level: the level maps against the
     # full-size level-0 maps under a small pose offset.
@@ -173,11 +177,86 @@ def phase_kernels(dev: torch.device) -> dict:
         want = reduce.plain(data)
         k2_err = max(k2_err, compare(f"K2 reduce {name}", got, want, K2_TOL))
         if name[0].isdigit():
-            ms = median_ms(lambda: reduce.reduce_track_cuda(data))
-            plain_ms = median_ms(lambda: reduce.plain(data))
-            k2_times[name] = (ms, plain_ms)
-            log(f"  K2 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"k1": (k1_err, k1_ms, k1_plain), "k2": (k2_err, k2_times)}
+            n = data["result"].numel()
+            nbytes, ops = 32 * n + 32 * 4, 56 * float(want[28])
+            # Nearest library call, not the same function: the Gram
+            # product of the pre-masked [8, n] stack [e, J, 1].
+            m = (data["result"] >= 1).reshape(-1).to(torch.float32)
+            stack = torch.cat([data["error"].reshape(1, -1),
+                               data["J"].reshape(6, -1),
+                               torch.ones(1, n, device=dev)]) * m
+            k2_times[name] = {
+                "ms": time_ms(f"K2 {name}",
+                              lambda: reduce.reduce_track_cuda(data)),
+                "plain_ms": time_ms(f"K2 {name} plain",
+                                    lambda: reduce.plain(data), reps=50),
+                "mm_ms": time_ms(f"K2 {name} torch.mm",
+                                 lambda: torch.mm(stack, stack.T)),
+                "bound_ms": bound_ms(nbytes, ops),
+                "bound_by": bound_by(nbytes, ops)}
+            log(f"  K2 {name}: {k2_times[name]}")
+    return {"k1": {"max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
+                   "bound_ms": bound_ms(k1_bytes, k1_ops),
+                   "bound_by": bound_by(k1_bytes, k1_ops)},
+            "k2": {"max_abs_err": k2_err, "by_shape": k2_times}}
+
+
+def phase_gathers(dev: torch.device) -> dict:
+    """G1-G4 against their plain twins, in every mode, at the gather
+    probes' shapes; a gather copies, so the results must be equal."""
+    from slambench_tpu_torch.ops.hopper import gather as g
+    from slambench_tpu_torch.ops.preprocess import mm2meters
+
+    log("  G1-G4 vs their plain twins (must be equal)")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def same(name, got, want):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or not torch.equal(got, want):
+            raise RuntimeError(f"{name}: kernel differs from its plain twin")
+        log(f"    {name}: {tuple(got.shape)} equal")
+
+    t = torch.rand((256, 128), generator=gen, device=dev)
+    for mode, hi in (("flat", 256 * 128), ("lane", 128), ("sublane", 256)):
+        i = ri(0, hi, (256, 128))
+        same(f"G2 {mode} 256x128", g.gather_axis_smem(t, i, mode),
+             g.gather_axis_plain(t, i, mode))
+        if mode == "flat":
+            same("G1 f32 256x128", g.gather_flat(t, i),
+                 g.gather_flat_plain(t, i))
+    mm = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 5000, (240, 320)).astype(np.uint16)).to(dev)
+    depth = g.mm_to_meters(mm)
+    # The port's mm2meters divides by a host scalar, which PyTorch's CUDA
+    # kernel computes as a product with the reciprocal (ROADMAP.md, 3).
+    ulp_off = int((mm2meters(mm, 1) != depth).sum())
+    log(f"    port mm2meters on the card: {ulp_off} of {mm.numel()} pixels "
+        f"differ from IEEE division (one ulp)")
+    idx = ri(0, 240 * 320, (1024, 2048))
+    vi, ui = ri(0, 240, (1024, 2048)), ri(0, 320, (1024, 2048))
+    g1 = g.gather_flat(depth, idx)
+    same("G1 f32 image 2M", g1, g.gather_flat_plain(depth, idx))
+    same("G1 u16 image 2M", g.gather_flat(mm, idx),
+         g.gather_flat_plain(mm, idx))
+    g3 = g.gather_smem_u16(mm, idx)
+    same("G3 u16 smem 2M", g3, g.gather_u16_plain(mm, idx))
+    same("G3 == G1 on the f32 image (bit for bit)", g3, g1)
+    same("G4 2-D 2M", g.gather_2d(depth, vi, ui),
+         g.gather_2d_plain(depth, vi, ui))
+    vol = ri(-32766, 32767, (256 ** 3,)).to(torch.int16)
+    for n in (76_800, 256 ** 3):
+        inside = ri(0, vol.numel(), (n,))
+        outside = ri(-1000, vol.numel() + 1000, (n,))
+        same(f"G1 int16 volume {n} in range", g.gather_flat(vol, inside),
+             g.gather_flat_plain(vol, inside))
+        same(f"G1 int16 volume {n} clip", g.gather_flat(vol, outside, True),
+             g.gather_flat_plain(vol, outside, True))
+    return {k: 0.0 for k in g.launches}
 
 
 def phase_main_path(dev: torch.device, work: str) -> dict:
@@ -189,7 +268,7 @@ def phase_main_path(dev: torch.device, work: str) -> dict:
     from slambench_tpu_torch.io.synthetic import generate_dataset
     from slambench_tpu_torch.ops.hopper import bilateral, reduce
 
-    log(f"[4/5 main path] traj2-like clip, {N_FRAMES} frames 640x480, "
+    log(f"[4/6 main path] traj2-like clip, {N_FRAMES} frames 640x480, "
         f"CLI {' '.join(CLI_ARGS)}")
     t0 = time.monotonic()
     man = generate_dataset(work, dev, n_frames=N_FRAMES,
@@ -251,31 +330,99 @@ def phase_main_path(dev: torch.device, work: str) -> dict:
             "ate_max": float(ate.max()), "ms": ms}
 
 
+def phase_probes(dev: torch.device) -> dict:
+    from slambench_tpu_torch.ops.hopper import bilateral, gather, reduce
+    from slambench_tpu_torch.tools import gather_probe, mosaic_probe
+
+    log("[5/6 probe path] tools/mosaic_probe.py and tools/gather_probe.py "
+        "at full shapes")
+    bilateral.launches = 0
+    reduce.launches = 0
+    for name in gather.launches:
+        gather.launches[name] = 0
+    t0 = time.monotonic()
+    result = {"mosaic": mosaic_probe.run(dev), "gather": gather_probe.run(dev)}
+    torch.cuda.synchronize()
+    launches = dict(gather.launches, K1=bilateral.launches, K2=reduce.launches)
+    bad = [f"{tool}.{k}" for tool, r in result.items()
+           for k, v in r.items() if isinstance(v, dict) and not v["ok"]]
+    if bad:
+        raise RuntimeError(f"probe entries disagree with their twins: {bad}")
+    unused = [k for k, v in launches.items() if v == 0]
+    if unused:
+        raise RuntimeError(f"kernels not launched on the probe path: {unused}")
+    log(f"  every entry agrees; launches {launches}; "
+        f"{time.monotonic() - t0:.2f} s")
+    result["launches"] = launches
+    return result
+
+
+# The gather kernels' rows: the probe entry each is timed by, and the
+# Pallas call of slambench_tpu/tools/mosaic_probe.py it stands in for.
+G_ROWS = (
+    ("G1 gather_flat", "gather_flat", "wide_gather_device",
+     "slambench_tpu/tools/mosaic_probe.py:214"),
+    ("G2 gather_axis_smem", "gather_axis_smem", "mosaic_take_flat",
+     "slambench_tpu/tools/mosaic_probe.py:55"),
+    ("G3 gather_smem_u16", "gather_smem_u16", "wide_gather_smem_u16",
+     "slambench_tpu/tools/mosaic_probe.py:214"),
+    ("G4 gather_2d", "gather_2d", "adv2d_gather",
+     "slambench_tpu/tools/mosaic_probe.py:243"),
+)
+
+
 def main() -> int:
+    from slambench_tpu_torch.tools.timing import bound_by, bound_ms
+
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     kr = phase_kernels(dev)
+    g_err = phase_gathers(dev)
     with tempfile.TemporaryDirectory(prefix="slb_smoke_") as work:
         mp = phase_main_path(dev, work)
-    k1_err, k1_ms, k1_plain = kr["k1"]
-    k2_err, k2_times = kr["k2"]
-    k2_ms, k2_plain = k2_times["240x320"]
-    kernels = {"kernels": [
+    pr = phase_probes(dev)
+    k1, k2 = kr["k1"], kr["k2"]
+    k2_0 = k2["by_shape"]["240x320"]
+    rows = [
         {"name": "K1 bilateral_filter", "route": "cuda",
          "source": "slambench_tpu_torch/ops/hopper/csrc/bilateral.cu",
          "replaces": "slambench_tpu/ops/pallas/bilateral.py:64",
-         "launches": mp["launches"]["K1"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "launches": mp["launches"]["K1"], "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None},
         {"name": "K2 reduce_track", "route": "cuda",
          "source": "slambench_tpu_torch/ops/hopper/csrc/reduce.cu",
          "replaces": "slambench_tpu/ops/pallas/reduce.py:87",
-         "launches": mp["launches"]["K2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
-    ]}
-    log("[5/5 report]")
-    log(json.dumps({"main_path": mp, "k2_ms_by_shape": k2_times}))
-    log(json.dumps(kernels))
+         "launches": mp["launches"]["K2"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2_0["ms"], "plain_ms": k2_0["plain_ms"],
+         "bound_ms": k2_0["bound_ms"], "bound_by": k2_0["bound_by"],
+         "library_ms": None},
+    ]
+    for name, key, entry, replaces in G_ROWS:
+        e = pr["mosaic"][entry]
+        per_ms = e["count"] * 1e-6
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "slambench_tpu_torch/ops/hopper/csrc/gather.cu",
+            "replaces": replaces, "launches": pr["launches"][key],
+            "max_abs_err": max(g_err[key], e["max_abs_err"]),
+            "ms": e["ns_per_elem"] * per_ms,
+            "plain_ms": e["plain_ns_per_elem"] * per_ms,
+            "bound_ms": bound_ms(e["bytes"], e["ops"]),
+            "bound_by": bound_by(e["bytes"], e["ops"]),
+            "library_ms": e["library_ns_per_elem"] * per_ms})
+    probes = {f"{tool}.{k}": [v["count"], v["ns_per_elem"],
+                              v["library_ns_per_elem"],
+                              v["bound_ns_per_elem"], v["host_bound"]]
+              for tool in ("mosaic", "gather")
+              for k, v in pr[tool].items() if isinstance(v, dict)}
+    log("[6/6 report]")
+    log(json.dumps({"main_path": mp, "k2_by_shape": k2["by_shape"]}))
+    log("probe entries [count, ns/elem, library ns/elem, bound ns/elem, "
+        "host-paced]: " + json.dumps(probes))
+    log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

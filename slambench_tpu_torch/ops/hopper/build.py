@@ -1,9 +1,10 @@
 """Build and load the hand-written Hopper kernels.
 
-At first use, ``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into one
+At first use, ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (one
+process per source, all started together) and links the objects into one
 shared library with a plain C interface under ``_build/`` (listed in
-``.gitignore``), named by a hash of the sources and flags, and the
-library is loaded with ``ctypes``. A plain C interface keeps PyTorch's
+``.gitignore``), named by a hash of the sources and flags; the library
+is loaded with ``ctypes``. A plain C interface keeps PyTorch's
 headers out of the build, so it takes seconds rather than minutes.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises with
@@ -24,7 +25,7 @@ from typing import Optional
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 # What the last build printed (ptxas register / spill report) and took.
@@ -66,6 +67,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.slb_bilateral_f32.restype = ci
     lib.slb_reduce_track_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
     lib.slb_reduce_track_f32.restype = ci
+    lib.slb_gather_flat.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp]
+    lib.slb_gather_flat.restype = ci
+    lib.slb_gather_axis_smem_f32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
+                                             ci, vp]
+    lib.slb_gather_axis_smem_f32.restype = ci
+    lib.slb_gather_smem_u16.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    lib.slb_gather_smem_u16.restype = ci
+    lib.slb_gather_2d_f32.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.slb_gather_2d_f32.restype = ci
     return lib
 
 
@@ -73,21 +83,41 @@ def build() -> str:
     """Compile the sources if no library of this hash exists; returns
     the library path."""
     global build_log, build_seconds
-    out = os.path.join(BUILD_DIR, f"libslb_hopper_{_digest()}.so")
+    digest = _digest()
+    out = os.path.join(BUILD_DIR, f"libslb_hopper_{digest}.so")
     if os.path.exists(out):
         return out
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
+    tag = f"{digest}.{os.getpid()}"
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], None
+    for cmd, _, proc in jobs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    if failed is None:
+        cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+               "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed = (cmd, proc.returncode)
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
     build_seconds = time.monotonic() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{build_log}")
+    build_log = "".join(logs)
+    if failed is not None:
+        raise RuntimeError(f"nvcc failed (exit {failed[1]}): "
+                           f"{' '.join(failed[0])}\n{build_log}")
     os.replace(tmp, out)
     return out
 

@@ -1,5 +1,6 @@
 """The port on a CUDA card: kernels K1/K2 against their plain twins at
-the main path's shapes, and a short end-to-end run through the CLI.
+the main path's shapes, G1-G4 against theirs at the gather probes'
+shapes, and a short end-to-end run through the CLI.
 
 Imports torch and the port only (no JAX), so it runs on the card's
 machine, where JAX is absent, with
@@ -17,7 +18,7 @@ from slambench_tpu_torch import geometry as G  # noqa: E402
 from slambench_tpu_torch.io.synthetic import (  # noqa: E402
     SyntheticScene, generate_dataset, orbit_trajectory, render_depth_frame,
 )
-from slambench_tpu_torch.ops.hopper import bilateral, reduce  # noqa: E402
+from slambench_tpu_torch.ops.hopper import bilateral, build, gather, reduce  # noqa: E402
 from slambench_tpu_torch.ops.preprocess import (  # noqa: E402
     half_sample_robust, make_gaussian, mm2meters,
 )
@@ -110,3 +111,99 @@ def test_cli_on_card(dev, tmp_path):
     log = parse_benchmark_log(log_path)
     assert log["tracked"][4:].all()
     assert compute_ate(log, load_gt_trajectory(man["gt"]))["ATE"].mean() < 0.06
+
+
+# ------------------------------ G1-G4 -------------------------------- #
+
+def _ri(dev, lo, hi, shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+@pytest.fixture(scope="module")
+def tables(dev):
+    rng = np.random.default_rng(5)
+    mm = torch.from_numpy(rng.integers(0, 5000, (240, 320))
+                          .astype(np.uint16)).to(dev)
+    return {"p1": torch.from_numpy(rng.random((256, 128)).astype(np.float32))
+            .to(dev),
+            "mm": mm, "depth": gather.mm_to_meters(mm),
+            "vol": torch.from_numpy(rng.integers(-32766, 32767, 256 ** 3)
+                                    .astype(np.int16)).to(dev)}
+
+
+def _launch_once(name, fn):
+    before = gather.launches[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert gather.launches[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("mode,hi", [("flat", 256 * 128), ("lane", 128),
+                                     ("sublane", 256)])
+def test_g2_shared_memory_gathers_equal_twin(dev, tables, mode, hi):
+    """P1's table (128 KB, above the 48 KB a block gets without the
+    dynamic shared-memory attribute) in every mode."""
+    t = tables["p1"]
+    i = _ri(dev, 0, hi, (256, 128), seed=hi)
+    got = _launch_once("gather_axis_smem",
+                       lambda: gather.gather_axis_smem(t, i, mode))
+    assert torch.equal(got, gather.gather_axis_plain(t, i, mode))
+
+
+@pytest.mark.parametrize("table,n,clamp", [
+    ("p1", 256 * 128, False), ("depth", 2 * 1024 * 1024, False),
+    ("mm", 2 * 1024 * 1024, False), ("vol", 76_800, False),
+    ("vol", 256 ** 3, False), ("vol", 256 ** 3, True),
+    ("depth", 76_800, True)])
+def test_g1_flat_gather_equals_twin(dev, tables, table, n, clamp):
+    t = tables[table]
+    lo, hi = (-1000, t.numel() + 1000) if clamp else (0, t.numel())
+    i = _ri(dev, lo, hi, (n,), seed=n)
+    got = _launch_once("gather_flat",
+                       lambda: gather.gather_flat(t, i, clamp))
+    assert torch.equal(got, gather.gather_flat_plain(t, i, clamp))
+
+
+def test_g3_u16_shared_memory_equals_g1_bit_for_bit(dev, tables):
+    i = _ri(dev, 0, 240 * 320, (1024, 2048), seed=3)
+    got = _launch_once("gather_smem_u16",
+                       lambda: gather.gather_smem_u16(tables["mm"], i))
+    assert torch.equal(got, gather.gather_u16_plain(tables["mm"], i))
+    assert torch.equal(got, gather.gather_flat(tables["depth"], i))
+
+
+def test_mm_to_meters_on_card_is_ieee_division(tables):
+    """The f32 image G3 is held to: the same bits as the CPU's division."""
+    assert torch.equal(gather.mm_to_meters(tables["mm"]).cpu(),
+                       gather.mm_to_meters(tables["mm"].cpu()))
+
+
+def test_g4_2d_gather_equals_twin(dev, tables):
+    vi = _ri(dev, 0, 240, (1024, 2048), seed=4)
+    ui = _ri(dev, 0, 320, (1024, 2048), seed=5)
+    got = _launch_once("gather_2d",
+                       lambda: gather.gather_2d(tables["depth"], vi, ui))
+    assert torch.equal(got, gather.gather_2d_plain(tables["depth"], vi, ui))
+
+
+def test_refused_shared_memory_launch_returns_its_error(dev):
+    """A table past the 232,448 bytes a block may use: the kernel is not
+    launched, the C call returns a non-zero cudaError_t, and build.check
+    raises."""
+    t = torch.zeros((240, 320), device=dev)
+    i = torch.zeros((240, 320), dtype=torch.int32, device=dev)
+    out = torch.empty_like(t)
+    status = build.load().slb_gather_axis_smem_f32(
+        t.data_ptr(), i.data_ptr(), out.data_ptr(), 240, 320, 240, 320, 0,
+        132, torch.cuda.current_stream().cuda_stream)
+    assert status != 0
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        build.check(status, "gather_axis_smem kernel")
+    # The refusal leaves no error behind for the next launch.
+    t2 = torch.rand((256, 128), device=dev)
+    i2 = torch.zeros((256, 128), dtype=torch.int32, device=dev)
+    assert torch.equal(gather.gather_axis_smem(t2, i2, "flat"),
+                       gather.gather_axis_plain(t2, i2, "flat"))
