@@ -10,18 +10,24 @@ no ``ok`` line):
 1. device — require CUDA, print the card (nvidia-smi name, power limit),
    torch and CUDA versions; apply the full-f32 precision policy;
 2. build — compile the hand-written kernels (K1 bilateral, K2 ICP
-   reduction, G1-G4 gathers) from ``slambench_tpu_torch/ops/hopper/csrc``
-   with nvcc, one process per source, all started together;
-3. kernels — each kernel against its plain-torch version on the card: K1
-   and K2 at the frame's shapes (a synthetic 640x480 frame at compute-size
-   ratio 2, its pyramid and real ICP TrackData), timed as one CUDA-event
-   pair around back-to-back launches (``tools/timing.py``); G1-G4 in every
-   mode at the gather probes' shapes, which must agree exactly;
+   reduction alone and fused with ``track`` (K2F), G1-G4 gathers) from
+   ``slambench_tpu_torch/ops/hopper/csrc`` with nvcc, one process per
+   source, all started together;
+3. kernels — ``mm2meters`` must equal IEEE division (numpy) for every
+   uint16 value and on the probe frames; each kernel against its
+   plain-torch version on the card: K1 and K2 at the frame's shapes (a
+   synthetic 640x480 frame at compute-size ratio 2, its pyramid and real
+   ICP TrackData), K2F at the pyramid's shapes, on a ragged 13x17 level,
+   on a level with no input and on one with holes in both normal maps
+   (result codes equal, the reduction within tolerance, two calls bit for
+   bit), timed as one CUDA-event pair around back-to-back launches
+   (``tools/timing.py``); G1-G4 in every mode at the gather probes'
+   shapes, which must agree exactly;
 4. main path — synthesise the traj2-like clip on the card, run the
    port's CLI ``run()`` phased at 256^3 / 4.8 m / 320x240 / pyramid
    10,5,4 / -r 1, check the ATE with the port's check_pos, the tracked
-   flags, and that the launch counts of K1 and K2 match the frames and
-   ICP iterations the run made;
+   flags, and that K1 launched once a frame, K2F once an ICP iteration
+   and the unfused K2 not at all;
 5. probe path — run the gather probes (``tools/mosaic_probe.py``, the
    counterpart of the TPU tool that held the Pallas gathers P1-P3, and
    ``tools/gather_probe.py``) at their full shapes; every entry must
@@ -83,6 +89,41 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
     return err
 
 
+def check_mm2meters(name: str, mm: torch.Tensor) -> None:
+    """The port's mm2meters on the card against numpy's IEEE division."""
+    from slambench_tpu_torch.ops.preprocess import mm2meters
+    got = mm2meters(mm, 1).cpu().numpy()
+    want = mm.cpu().numpy().astype(np.float32) / np.float32(1000)
+    off = int((got.view(np.uint32) != want.view(np.uint32)).sum())
+    if off:
+        raise RuntimeError(f"mm2meters {name}: {off} of {want.size} values "
+                           f"differ from IEEE division")
+    log(f"  mm2meters {name}: all {want.size} values equal IEEE division")
+
+
+def fused_work(result: torch.Tensor):
+    """(bytes, f32 operations) that the fused kernel's inputs need at the
+    least, from its result codes (see csrc/reduce.cu): every pixel reads
+    its normal's x and writes its code; a pixel past -1 reads its vertex
+    and is projected; past -2 it reads the reference normal's x; past -3
+    the other five reference channels and the distance test; past -4 its
+    normal's y, z and the normal test; a tracked pixel forms its row and
+    adds it to the 32 sums. (The kernel reads all six level-map values of
+    every pixel and all six reference channels of every pixel past -2:
+    fewer rounds of loads, more bytes than this bound counts.)"""
+    n = result.numel()
+    c = {k: int((result == k).sum()) for k in (-1, -2, -3, -4, -5, 1)}
+    projected = n - c[-1]
+    gathered = projected - c[-2]
+    full = gathered - c[-3]
+    normal = full - c[-4]
+    nbytes = 8 * n + 12 * projected + 4 * gathered + 20 * full \
+        + 8 * normal + 32 * 4
+    ops = n + 44 * projected + 3 * gathered + 10 * full + 21 * normal \
+        + 71 * c[1]
+    return nbytes, ops
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: torch.cuda.is_available() is False; this "
@@ -129,8 +170,11 @@ def phase_kernels(dev: torch.device) -> dict:
     depth_mm = render_depth_frame(SyntheticScene(dim=dim), poses[11],
                                   (481.2, 480.0, 320.0, 240.0), (640, 480),
                                   dev)
-    fd = mm2meters(torch.from_numpy(depth_mm.astype(np.int32)).to(dev), 2) \
-        .contiguous()
+    mm_dev = torch.from_numpy(depth_mm.astype(np.int32)).to(dev)
+    check_mm2meters("every uint16 value", torch.arange(
+        65536, dtype=torch.int32, device=dev).reshape(256, 256))
+    check_mm2meters("640x480 frame", mm_dev)
+    fd = mm2meters(mm_dev, 2).contiguous()
     lut = make_gaussian()
 
     got = bilateral.bilateral_filter_cuda(fd, lut)
@@ -195,17 +239,62 @@ def phase_kernels(dev: torch.device) -> dict:
                 "bound_ms": bound_ms(nbytes, ops),
                 "bound_by": bound_by(nbytes, ops)}
             log(f"  K2 {name}: {k2_times[name]}")
+
+    # K2F, track fused into K2, on the same level maps against the
+    # level-0 reference maps, a ragged 13x17 level cut from level 0, a
+    # level whose every pixel is -1 (no input), and level 0 with stripes
+    # of no input (-1) and of no reference normal (-3).
+    ref_v, ref_n = maps[0]
+    fused_cases = [(f"{v.shape[1]}x{v.shape[2]}", v, n, ref_n)
+                   for v, n in maps]
+    holes_n, holes_ref_n = ref_n.clone(), ref_n.clone()
+    holes_n[0, 40:60] = -2.0
+    holes_ref_n[0, 120:140] = -2.0
+    fused_cases += [
+        ("ragged 13x17", ref_v[:, 100:113, 150:167].contiguous(),
+         ref_n[:, 100:113, 150:167].contiguous(), ref_n),
+        ("no input 60x80", maps[2][0], torch.full_like(maps[2][1], -2.0),
+         ref_n),
+        ("holes 240x320", ref_v, holes_n, holes_ref_n)]
+    kf_err, kf_times = 0.0, {}
+    for name, v, n, rn in fused_cases:
+        args = (v, n, ref_v, rn, pose, view)
+        got, res = reduce.track_reduce_cuda(*args)
+        got2, res2 = reduce.track_reduce_cuda(*args)
+        want, want_res = reduce.track_reduce_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(res, want_res):
+            raise RuntimeError(f"K2F {name}: {int((res != want_res).sum())} "
+                               f"result codes differ from the twin's")
+        if not (torch.equal(got, got2) and torch.equal(res, res2)):
+            raise RuntimeError(f"K2F {name}: two calls differ")
+        kf_err = max(kf_err, compare(f"K2F track_reduce {name}", got, want,
+                                     K2_TOL))
+        codes = {k: int((res == k).sum()) for k in (1, -1, -2, -3, -4, -5)}
+        log(f"    codes {codes}; equal to the twin's; two calls equal")
+        if name[0].isdigit():
+            nbytes, ops = fused_work(res)
+            kf_times[name] = {
+                "ms": time_ms(f"K2F {name}",
+                              lambda: reduce.track_reduce_cuda(*args)),
+                "plain_ms": time_ms(f"K2F {name} plain",
+                                    lambda: reduce.track_reduce_plain(*args),
+                                    reps=20),
+                "bound_ms": bound_ms(nbytes, ops),
+                "bound_by": bound_by(nbytes, ops),
+                "bytes": nbytes, "ops": ops}
+            log(f"  K2F {name}: {kf_times[name]}")
     return {"k1": {"max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
                    "bound_ms": bound_ms(k1_bytes, k1_ops),
                    "bound_by": bound_by(k1_bytes, k1_ops)},
-            "k2": {"max_abs_err": k2_err, "by_shape": k2_times}}
+            "k2": {"max_abs_err": k2_err, "by_shape": k2_times},
+            "k2f": {"max_abs_err": kf_err, "by_shape": kf_times}}
 
 
 def phase_gathers(dev: torch.device) -> dict:
     """G1-G4 against their plain twins, in every mode, at the gather
     probes' shapes; a gather copies, so the results must be equal."""
     from slambench_tpu_torch.ops.hopper import gather as g
-    from slambench_tpu_torch.ops.preprocess import mm2meters
 
     log("  G1-G4 vs their plain twins (must be equal)")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -231,12 +320,8 @@ def phase_gathers(dev: torch.device) -> dict:
                  g.gather_flat_plain(t, i))
     mm = torch.from_numpy(np.random.default_rng(0).integers(
         0, 5000, (240, 320)).astype(np.uint16)).to(dev)
+    check_mm2meters("probe image 240x320", mm.to(torch.int32))
     depth = g.mm_to_meters(mm)
-    # The port's mm2meters divides by a host scalar, which PyTorch's CUDA
-    # kernel computes as a product with the reciprocal (ROADMAP.md, 3).
-    ulp_off = int((mm2meters(mm, 1) != depth).sum())
-    log(f"    port mm2meters on the card: {ulp_off} of {mm.numel()} pixels "
-        f"differ from IEEE division (one ulp)")
     idx = ri(0, 240 * 320, (1024, 2048))
     vi, ui = ri(0, 240, (1024, 2048)), ri(0, 320, (1024, 2048))
     g1 = g.gather_flat(depth, idx)
@@ -281,11 +366,13 @@ def phase_main_path(dev: torch.device, work: str) -> dict:
 
     bilateral.launches = 0
     reduce.launches = 0
+    reduce.fused_launches = 0
     t0 = time.monotonic()
     summary = run(config, dev, quiet=True)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {"K1": bilateral.launches, "K2": reduce.launches}
+    launches = {"K1": bilateral.launches, "K2": reduce.launches,
+                "K2F": reduce.fused_launches}
 
     logd = parse_benchmark_log(log_path)
     ate = compute_ate(logd, load_gt_trajectory(man["gt"]))["ATE"]
@@ -308,9 +395,12 @@ def phase_main_path(dev: torch.device, work: str) -> dict:
         raise RuntimeError(f"ATE mean {ate.mean():.5f} m >= {ATE_MEAN_BOUND}")
     if launches["K1"] != n:
         raise RuntimeError(f"K1 launches {launches['K1']} != frames {n}")
-    if launches["K2"] != icp_iters:
-        raise RuntimeError(f"K2 launches {launches['K2']} != ICP "
+    if launches["K2F"] != icp_iters:
+        raise RuntimeError(f"K2F launches {launches['K2F']} != ICP "
                            f"iterations {icp_iters}")
+    if launches["K2"] != 0:
+        raise RuntimeError(f"the unfused K2 launched {launches['K2']} times "
+                           f"on the main path; tracking runs K2F")
 
     steady = slice(5, None)
     ms = {k: 1e3 * float(np.mean(np.asarray(summary[k])[steady]))
@@ -338,6 +428,7 @@ def phase_probes(dev: torch.device) -> dict:
         "at full shapes")
     bilateral.launches = 0
     reduce.launches = 0
+    reduce.fused_launches = 0
     for name in gather.launches:
         gather.launches[name] = 0
     t0 = time.monotonic()
@@ -382,8 +473,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="slb_smoke_") as work:
         mp = phase_main_path(dev, work)
     pr = phase_probes(dev)
-    k1, k2 = kr["k1"], kr["k2"]
+    k1, k2, k2f = kr["k1"], kr["k2"], kr["k2f"]
     k2_0 = k2["by_shape"]["240x320"]
+    k2f_0 = k2f["by_shape"]["240x320"]
     rows = [
         {"name": "K1 bilateral_filter", "route": "cuda",
          "source": "slambench_tpu_torch/ops/hopper/csrc/bilateral.cu",
@@ -392,12 +484,21 @@ def main() -> int:
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": None},
+        # The frame path runs K2F (K2's launches there are 0, asserted in
+        # phase 4); the unfused K2 runs on the probe path.
         {"name": "K2 reduce_track", "route": "cuda",
          "source": "slambench_tpu_torch/ops/hopper/csrc/reduce.cu",
          "replaces": "slambench_tpu/ops/pallas/reduce.py:87",
-         "launches": mp["launches"]["K2"], "max_abs_err": k2["max_abs_err"],
+         "launches": pr["launches"]["K2"], "max_abs_err": k2["max_abs_err"],
          "ms": k2_0["ms"], "plain_ms": k2_0["plain_ms"],
          "bound_ms": k2_0["bound_ms"], "bound_by": k2_0["bound_by"],
+         "library_ms": None},
+        {"name": "K2F track_reduce (track fused into K2)", "route": "cuda",
+         "source": "slambench_tpu_torch/ops/hopper/csrc/reduce.cu",
+         "replaces": "slambench_tpu/ops/pallas/reduce.py:87",
+         "launches": mp["launches"]["K2F"], "max_abs_err": k2f["max_abs_err"],
+         "ms": k2f_0["ms"], "plain_ms": k2f_0["plain_ms"],
+         "bound_ms": k2f_0["bound_ms"], "bound_by": k2f_0["bound_by"],
          "library_ms": None},
     ]
     for name, key, entry, replaces in G_ROWS:
@@ -419,7 +520,8 @@ def main() -> int:
               for tool in ("mosaic", "gather")
               for k, v in pr[tool].items() if isinstance(v, dict)}
     log("[6/6 report]")
-    log(json.dumps({"main_path": mp, "k2_by_shape": k2["by_shape"]}))
+    log(json.dumps({"main_path": mp, "k2_by_shape": k2["by_shape"],
+                    "k2f_by_shape": k2f["by_shape"]}))
     log("probe entries [count, ns/elem, library ns/elem, bound ns/elem, "
         "host-paced]: " + json.dumps(probes))
     log(json.dumps({"kernels": rows}))

@@ -15,7 +15,7 @@ and serve the port's gather probes (``tools/mosaic_probe.py``,
   then a flat, lane (``axis=1``) or sublane (``axis=0``) gather;
 * G3 ``gather_smem_u16``: the uint16 millimetre image staged in shared
   memory, each lookup converted to metres by IEEE division, as the JAX
-  package's ``mm2meters`` (see ``mm_to_meters``);
+  package's ``mm2meters`` (``ops/preprocess.py:mm_to_meters``);
 * G4 ``gather_2d``: ``out = table[vi, ui]``.
 
 Each has a plain twin here (``*_plain``): the one PyTorch indexing call
@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from slambench_tpu_torch.ops.hopper import build
+from slambench_tpu_torch.ops.preprocess import mm_to_meters
 
 # The kernels' table types, by the code the C interface takes.
 TABLE_TYPES = {torch.float32: 0, torch.int16: 1, torch.uint16: 2}
@@ -62,15 +63,6 @@ def gather_axis_plain(table: torch.Tensor, idx: torch.Tensor,
     if mode == "flat":
         return table.reshape(-1)[idx]
     return torch.gather(table, 1 if mode == "lane" else 0, idx)
-
-
-def mm_to_meters(mm: torch.Tensor) -> torch.Tensor:
-    """float32 metres from integer millimetres by IEEE division, the JAX
-    package's ``mm2meters`` arithmetic. PyTorch's CUDA kernel turns a
-    division by a host scalar into a product with its reciprocal, which
-    is one ulp off for about half of all millimetre values, so the
-    divisor here is a tensor on the same device."""
-    return mm.to(torch.float32) / torch.full((), 1000.0, device=mm.device)
 
 
 def gather_u16_plain(table_mm: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

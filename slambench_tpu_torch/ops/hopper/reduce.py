@@ -1,27 +1,74 @@
-"""K2 wrapper: the ICP normal-equations reduction as a hand-written CUDA
-kernel.
+"""K2 wrappers: the ICP normal-equations reduction as hand-written CUDA
+kernels, alone and fused with ``track``.
 
-Replaces ``slambench_tpu/ops/pallas/reduce.py:reduce_track_pallas``; the
-kernel is ``csrc/reduce.cu`` (two stages, deterministic). On CPU tensors
-the wrapper runs the plain-torch twin ``reduce_track`` (ops/track.py,
-re-exported here as ``plain``); on CUDA tensors it launches the kernel
-or raises.
+Both replace ``slambench_tpu/ops/pallas/reduce.py:reduce_track_pallas``;
+the kernels are the two entry points of ``csrc/reduce.cu`` (one launch
+each, deterministic):
+
+* ``reduce_track_cuda(data)`` takes TrackData, the Pallas kernel's
+  contract; its plain twin is ``plain`` (``ops/track.py:reduce_track``);
+* ``track_reduce_cuda(...)`` runs ``ops/track.py:track`` inside the
+  kernel and returns ``(out[32], result[h, w])`` without forming error
+  or J in device memory; its plain twin is ``track_reduce_plain``. The
+  ICP loop of ``pipeline.py`` calls it.
+
+On CPU tensors each wrapper runs its twin; on CUDA tensors it launches
+its kernel or raises.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
+from slambench_tpu_torch import params
 from slambench_tpu_torch.ops.hopper import build
-from slambench_tpu_torch.ops.track import TrackData
+from slambench_tpu_torch.ops.track import TrackData, track
 from slambench_tpu_torch.ops.track import reduce_track as plain
 
-# Stage-1 blocks: one per SM of an H100 (132). Fixed, so the partials and
-# their summation order do not depend on the input size.
-NBLOCKS = 132
+THREADS = 256
+# The grid gives one pixel per thread up to 4 blocks per SM of an H100
+# (132 SMs); larger inputs loop. It depends only on the pixel count, so
+# the kernels' summation order does too.
+MAX_BLOCKS = 4 * 132
 
-# Kernel launches since the last reset (chip_smoke.py reads this).
-launches = 0
+# Kernel launches since the last reset (chip_smoke.py reads these).
+launches = 0          # reduce_track_cuda
+fused_launches = 0    # track_reduce_cuda
+
+# Per (device, stream): the [MAX_BLOCKS, 32] block partials and the
+# last-block ticket (left 0 by every launch). Allocated at first use.
+_Scratch = Tuple[torch.Tensor, torch.Tensor]
+_scratch: Dict[Tuple[torch.device, int], _Scratch] = {}
+
+
+def grid_blocks(n: int) -> int:
+    return max(1, min(MAX_BLOCKS, -(-n // THREADS)))
+
+
+def _scratch_for(device: torch.device, stream: int) -> _Scratch:
+    key = (device, stream)
+    if key not in _scratch:
+        _scratch[key] = (
+            torch.empty((MAX_BLOCKS, 32), dtype=torch.float32, device=device),
+            torch.zeros((1,), dtype=torch.int32, device=device))
+    return _scratch[key]
+
+
+def _device_of(tensors) -> torch.device:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {devices}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def _check_contiguous(tensors, what: str) -> None:
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} must be contiguous")
 
 
 def reduce_track_cuda(data: TrackData) -> torch.Tensor:
@@ -36,25 +83,77 @@ def reduce_track_cuda(data: TrackData) -> torch.Tensor:
         raise ValueError(f"shapes must be [h,w], [h,w], [6,h,w]; got "
                          f"{tuple(result.shape)}, {tuple(error.shape)}, "
                          f"{tuple(J.shape)}")
-    devices = {result.device, error.device, J.device}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on different devices: {devices}")
-    device = result.device
+    device = _device_of((result, error, J))
     if device.type == "cpu":
         return plain(data)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    if not (result.is_contiguous() and error.is_contiguous()
-            and J.is_contiguous()):
-        raise ValueError("TrackData tensors must be contiguous")
+    _check_contiguous((result, error, J), "TrackData tensors")
     n = result.numel()
-    partials = torch.empty((NBLOCKS, 32), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    partials, ticket = _scratch_for(device, stream)
     out = torch.empty((32,), dtype=torch.float32, device=device)
-    lib = build.load()
-    status = lib.slb_reduce_track_f32(
+    status = build.load().slb_reduce_track_f32(
         result.data_ptr(), error.data_ptr(), J.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), n, NBLOCKS,
-        torch.cuda.current_stream(device).cuda_stream)
+        partials.data_ptr(), ticket.data_ptr(), out.data_ptr(), n,
+        grid_blocks(n), MAX_BLOCKS, stream)
     build.check(status, "reduce kernel")
     launches += 1
     return out
+
+
+def track_reduce_plain(in_vertex, in_normal, ref_vertex, ref_normal, pose,
+                       view, dist_threshold=params.DIST_THRESHOLD,
+                       normal_threshold=params.NORMAL_THRESHOLD
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernel's plain twin: ``track``, then ``reduce_track``."""
+    data = track(in_vertex, in_normal, ref_vertex, ref_normal, pose, view,
+                 dist_threshold, normal_threshold)
+    return plain(data), data["result"]
+
+
+def track_reduce_cuda(in_vertex: torch.Tensor,
+                      in_normal: torch.Tensor,
+                      ref_vertex: torch.Tensor,
+                      ref_normal: torch.Tensor,
+                      pose: torch.Tensor,
+                      view: torch.Tensor,
+                      dist_threshold: float = params.DIST_THRESHOLD,
+                      normal_threshold: float = params.NORMAL_THRESHOLD,
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ICP iteration's data term, ``ops/track.py:track_and_reduce``
+    without the TrackData: returns (packed 32 floats, result codes
+    [h, w] int32). ``in_*`` are [3, h, w] level maps, ``ref_*`` [3, H, W]
+    at full size, ``pose`` and ``view`` [4, 4]; all float32 on one
+    device. Nothing is read back to the host."""
+    global fused_launches
+    tensors = (in_vertex, in_normal, ref_vertex, ref_normal, pose, view)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError("dtypes must all be float32, got "
+                         f"{[str(t.dtype) for t in tensors]}")
+    if in_vertex.dim() != 3 or in_vertex.shape[0] != 3 \
+            or in_normal.shape != in_vertex.shape \
+            or ref_vertex.dim() != 3 or ref_vertex.shape[0] != 3 \
+            or ref_normal.shape != ref_vertex.shape \
+            or pose.shape != (4, 4) or view.shape != (4, 4):
+        raise ValueError(
+            "shapes must be [3,h,w] x2, [3,H,W] x2, [4,4] x2; got "
+            f"{[tuple(t.shape) for t in tensors]}")
+    device = _device_of(tensors)
+    if device.type == "cpu":
+        return track_reduce_plain(*tensors, dist_threshold, normal_threshold)
+    _check_contiguous(tensors, "track_reduce inputs")
+    _, h, w = in_vertex.shape
+    _, H, W = ref_vertex.shape
+    n = h * w
+    stream = torch.cuda.current_stream(device).cuda_stream
+    partials, ticket = _scratch_for(device, stream)
+    out = torch.empty((32,), dtype=torch.float32, device=device)
+    result = torch.empty((h, w), dtype=torch.int32, device=device)
+    status = build.load().slb_track_reduce_f32(
+        in_vertex.data_ptr(), in_normal.data_ptr(), ref_vertex.data_ptr(),
+        ref_normal.data_ptr(), pose.data_ptr(), view.data_ptr(),
+        result.data_ptr(), partials.data_ptr(), ticket.data_ptr(),
+        out.data_ptr(), n, H, W, dist_threshold, normal_threshold,
+        grid_blocks(n), MAX_BLOCKS, stream)
+    build.check(status, "track_reduce kernel")
+    fused_launches += 1
+    return out, result

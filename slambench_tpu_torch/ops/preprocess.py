@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from slambench_tpu_torch import params
+from slambench_tpu_torch.geometry import constant
 
 
 def make_gaussian(delta: float = params.DELTA,
@@ -23,11 +24,20 @@ def make_gaussian(delta: float = params.DELTA,
     return np.exp(-(x * x) / (2.0 * delta * delta)).astype(np.float32)
 
 
+def mm_to_meters(mm: torch.Tensor) -> torch.Tensor:
+    """float32 metres from integer millimetres by IEEE division, the JAX
+    package's ``astype(f32) / 1000``. PyTorch's CUDA kernel turns a
+    division by a host scalar into a product with its reciprocal, which
+    is one ulp off for about half of all millimetre values, so the
+    divisor here is a tensor on the same device."""
+    return mm.to(torch.float32) / constant((1000.0,), torch.float32,
+                                           mm.device)
+
+
 def mm2meters(depth_mm: torch.Tensor, ratio: int) -> torch.Tensor:
     """uint16 millimetre depth (any integer dtype) -> float32 metres by
     strided subsampling (reference: cpp/kernels.cpp:562-589)."""
-    sub = depth_mm[::ratio, ::ratio]
-    return sub.to(torch.float32) / 1000.0
+    return mm_to_meters(depth_mm[::ratio, ::ratio])
 
 
 def _uintwrap_index(size: int, d: int, device) -> torch.Tensor:

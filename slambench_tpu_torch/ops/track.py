@@ -4,7 +4,9 @@ reference: kfusion/src/cpp/kernels.cpp:251-560).
 
 ``reduce_track`` is the plain-torch twin of the hand-written CUDA kernel
 K2 (``ops/hopper/reduce.py``), with the same packed 32-float output
-``[err^2, JTe(6), triu(JTJ)(21), count, n_-4, n_-5, n_other]``.
+``[err^2, JTe(6), triu(JTJ)(21), count, n_-4, n_-5, n_other]``; ``track``
+then ``reduce_track`` is the twin of the fused kernel K2F
+(``reduce.track_reduce_cuda``), which the frame step calls.
 
 Track result codes (reference: cpp/kernels.cpp:514-553):
   1 tracked / -1 no input / -2 projects outside image /

@@ -8,7 +8,7 @@ phases of the reference's ``Kfusion`` class on one ``torch.device``:
 
 * preprocessing — mm2meters, then the bilateral filter (kernel K1);
 * tracking — half-sample pyramid, vertex/normal maps, coarse-to-fine
-  ICP with the K2 reduction, checkPose;
+  ICP with one fused track + reduce kernel (K2) per iteration, checkPose;
 * integration — TSDF fusion and the min-mip rebuild;
 * raycasting — the min-mip skip march for the next reference maps.
 
@@ -32,13 +32,13 @@ from slambench_tpu_torch.geometry import (
     translation_pose,
 )
 from slambench_tpu_torch.ops.hopper.bilateral import bilateral_filter_cuda
+from slambench_tpu_torch.ops.hopper.reduce import track_reduce_cuda
 from slambench_tpu_torch.ops.integrate import integrate
 from slambench_tpu_torch.ops.preprocess import (
     half_sample_robust, make_gaussian, mm2meters,
 )
 from slambench_tpu_torch.ops.raycast_fast import make_min_mip, raycast_fast_maps
 from slambench_tpu_torch.ops.solve import check_pose, update_pose
-from slambench_tpu_torch.ops.track import track_and_reduce
 from slambench_tpu_torch.ops.vertex import depth2vertex, vertex2normal
 from slambench_tpu_torch.volume import init_volume
 
@@ -190,14 +190,13 @@ class KFusion:
                                        device=self.device)
             done = torch.zeros((), dtype=torch.bool, device=self.device)
             for _ in range(self.iterations[level]):
-                red, data = track_and_reduce(
+                red, result = track_reduce_cuda(
                     verts[level], norms[level], state.ref_vertex,
                     state.ref_normal, pose, view)
                 new_pose, conv = update_pose(pose, red, self.icp_threshold)
                 pose = torch.where(done, pose, new_pose)
                 reduction = torch.where(done, reduction, red)
-                level_result = torch.where(done, level_result,
-                                           data["result"])
+                level_result = torch.where(done, level_result, result)
                 done = done | conv
             if level == 0:
                 track_result = level_result

@@ -42,7 +42,8 @@ from slambench_tpu_torch.policy import (
 
 # Device-kernel name fragments of the hand kernels (ops/hopper/csrc).
 HAND_KERNELS = {"K1 bilateral": "bilateral_kernel",
-                "K2 reduce": "reduce_stage"}
+                "K2 reduce": "reduce_track_kernel",
+                "K2F track_reduce": "track_reduce_kernel"}
 
 
 def _device_events(prof):

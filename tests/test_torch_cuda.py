@@ -1,6 +1,7 @@
-"""The port on a CUDA card: kernels K1/K2 against their plain twins at
-the main path's shapes, G1-G4 against theirs at the gather probes'
-shapes, and a short end-to-end run through the CLI.
+"""The port on a CUDA card: kernels K1, K2 and K2F (track fused into K2)
+against their plain twins at the main path's shapes, one ICP level with
+no host read, mm2meters as IEEE division, G1-G4 against their twins at
+the gather probes' shapes, and a short end-to-end run through the CLI.
 
 Imports torch and the port only (no JAX), so it runs on the card's
 machine, where JAX is absent, with
@@ -22,6 +23,7 @@ from slambench_tpu_torch.ops.hopper import bilateral, build, gather, reduce  # n
 from slambench_tpu_torch.ops.preprocess import (  # noqa: E402
     half_sample_robust, make_gaussian, mm2meters,
 )
+from slambench_tpu_torch.ops.solve import update_pose  # noqa: E402
 from slambench_tpu_torch.ops.track import track  # noqa: E402
 from slambench_tpu_torch.ops.vertex import depth2vertex, vertex2normal  # noqa: E402
 from slambench_tpu_torch.policy import apply_precision_policy  # noqa: E402
@@ -58,17 +60,7 @@ def test_bilateral_kernel_matches_plain(frame):
 
 @pytest.mark.parametrize("level", [0, 1, 2])
 def test_reduce_kernel_matches_plain(frame, dev, level):
-    k = torch.tensor([240.6, 240.0, 160.0, 120.0], device=dev)
-    d = bilateral.plain(frame, make_gaussian())
-    pyr = [d]
-    for _ in range(level):
-        pyr.append(half_sample_robust(pyr[-1], 0.3, 1))
-    ref_v = depth2vertex(d, G.get_inverse_camera_matrix(k))
-    v = depth2vertex(pyr[-1], G.get_inverse_camera_matrix(k / (1 << level)))
-    pose = G.se3_exp(torch.tensor([0.01, -0.005, 0.008, 0.004, -0.003,
-                                   0.002], device=dev))
-    data = track(v, vertex2normal(v), ref_v, vertex2normal(ref_v), pose,
-                 G.get_camera_matrix(k))
+    data = track(*_level_maps(frame, dev, level))
     before = reduce.launches
     got = reduce.reduce_track_cuda(data)
     assert reduce.launches == before + 1
@@ -87,13 +79,99 @@ def test_reduce_kernel_ragged_and_random_codes(dev):
         got = reduce.reduce_track_cuda(data)
         torch.testing.assert_close(got, reduce.plain(data), rtol=1e-4,
                                    atol=1e-3)
-        # Two stages, fixed order: the same input gives the same bits.
+        # One launch, partials summed in block order: the same bits.
         assert torch.equal(got, reduce.reduce_track_cuda(data))
+
+
+def _level_maps(frame, dev, level):
+    """(level vertex, level normal, reference vertex, reference normal,
+    pose, view): a pyramid level against the full-size maps of the same
+    frame under a small pose offset, as the ICP loop sees them."""
+    k = torch.tensor([240.6, 240.0, 160.0, 120.0], device=dev)
+    d = bilateral.plain(frame, make_gaussian())
+    pyr = [d]
+    for _ in range(level):
+        pyr.append(half_sample_robust(pyr[-1], 0.3, 1))
+    ref_v = depth2vertex(d, G.get_inverse_camera_matrix(k))
+    v = depth2vertex(pyr[-1], G.get_inverse_camera_matrix(k / (1 << level)))
+    pose = G.se3_exp(torch.tensor([0.01, -0.005, 0.008, 0.004, -0.003,
+                                   0.002], device=dev))
+    return [v, vertex2normal(v), ref_v, vertex2normal(ref_v), pose,
+            G.get_camera_matrix(k)]
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, "ragged", "holes"])
+def test_fused_kernel_matches_twin(frame, dev, level):
+    """240x320, 120x160, 60x80, a 13x17 cut of level 0, and level 0 with
+    stripes of no input (-1) and no reference normal (-3): the same
+    result codes, the reduction within K2's tolerance, and two calls
+    bit for bit."""
+    args = _level_maps(frame, dev, level if isinstance(level, int) else 0)
+    if level == "ragged":
+        args[:2] = [a[:, 100:113, 150:167].contiguous() for a in args[:2]]
+    if level == "holes":
+        args[1], args[3] = args[1].clone(), args[3].clone()
+        args[1][0, 40:60] = -2.0
+        args[3][0, 120:140] = -2.0
+    before = reduce.fused_launches
+    got, res = reduce.track_reduce_cuda(*args)
+    assert reduce.fused_launches == before + 1
+    want, want_res = reduce.track_reduce_plain(*args)
+    assert torch.equal(res, want_res)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    got2, res2 = reduce.track_reduce_cuda(*args)
+    assert torch.equal(got, got2) and torch.equal(res, res2)
+    assert int(got[28]) > 0
+
+
+def test_fused_kernel_no_input_level(frame, dev):
+    v, n, rv, rn, pose, view = _level_maps(frame, dev, 2)
+    got, res = reduce.track_reduce_cuda(v, torch.full_like(n, -2.0), rv, rn,
+                                        pose, view)
+    want = torch.zeros(32, device=dev)
+    want[31] = res.numel()
+    assert (res == -1).all() and torch.equal(got, want)
+
+
+def test_icp_level_makes_no_host_read(frame, dev):
+    """One level of KFusion.tracking's ICP loop (fused data term, pose
+    update, freeze on convergence) under sync debug mode "error": any
+    host read there raises."""
+    v, n, rv, rn, pose, view = _level_maps(frame, dev, 1)
+    red, _ = reduce.track_reduce_cuda(v, n, rv, rn, pose, view)
+    update_pose(pose, red, 1e-5)          # warm-up: build, scratch, constants
+    torch.cuda.synchronize()
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    reduction = torch.zeros(32, device=dev)
+    level_result = torch.zeros(v.shape[1:], dtype=torch.int32, device=dev)
+    before = reduce.fused_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            red, res = reduce.track_reduce_cuda(v, n, rv, rn, pose, view)
+            new_pose, conv = update_pose(pose, red, 1e-5)
+            pose = torch.where(done, pose, new_pose)
+            reduction = torch.where(done, reduction, red)
+            level_result = torch.where(done, level_result, res)
+            done = done | conv
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert reduce.fused_launches == before + 5
+    assert torch.isfinite(pose).all() and int(reduction[28]) > 0
+
+
+def test_mm2meters_on_card_is_ieee_division_for_every_uint16(dev):
+    mm = torch.arange(65536, dtype=torch.int32, device=dev).reshape(256, 256)
+    got = mm2meters(mm, 1).cpu().numpy()
+    want = np.arange(65536).astype(np.float32).reshape(256, 256) \
+        / np.float32(1000)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 def test_cli_on_card(dev, tmp_path):
     """12 frames of the 160x120 clip at 64^3 through the CLI on the card:
-    tracked from frame 4, one K1 launch per frame, 19 K2 per frame."""
+    tracked from frame 4, one K1 launch per frame, 19 K2F per frame and
+    no unfused K2."""
     from slambench_tpu_torch.config import parse_args
     from slambench_tpu_torch.eval.check_pos import (
         compute_ate, load_gt_trajectory, parse_benchmark_log,
@@ -105,9 +183,10 @@ def test_cli_on_card(dev, tmp_path):
     cfg = parse_args(["-i", man["raw"], "-o", log_path, "-v", "64",
                       "-s", "4.8", "-p", "0.34,0.5,0.24", "-c", "1", "-r", "1",
                       "-k", "120.3,120.0,80,60"])
-    bilateral.launches = reduce.launches = 0
+    bilateral.launches = reduce.launches = reduce.fused_launches = 0
     run(cfg, dev, quiet=True)
-    assert bilateral.launches == 12 and reduce.launches == 12 * 19
+    assert bilateral.launches == 12 and reduce.fused_launches == 12 * 19
+    assert reduce.launches == 0
     log = parse_benchmark_log(log_path)
     assert log["tracked"][4:].all()
     assert compute_ate(log, load_gt_trajectory(man["gt"]))["ATE"].mean() < 0.06
