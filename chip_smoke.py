@@ -9,15 +9,20 @@ no ``ok`` line):
 
 1. device — require CUDA, print the card (nvidia-smi name, power limit),
    torch and CUDA versions; apply the full-f32 precision policy;
-2. build — compile the hand-written kernels (K1 bilateral, K2 ICP
-   reduction alone and fused with ``track`` (K2F), G1-G4 gathers) from
+2. build — compile the hand-written kernels (K1 bilateral alone and
+   fused with ``mm2meters`` (K1F), K2 ICP reduction alone and fused with
+   ``track`` (K2F), G1-G4 gathers) from
    ``slambench_tpu_torch/ops/hopper/csrc`` with nvcc, one process per
    source, all started together;
 3. kernels — ``mm2meters`` must equal IEEE division (numpy) for every
    uint16 value and on the probe frames; each kernel against its
    plain-torch version on the card: K1 and K2 at the frame's shapes (a
    synthetic 640x480 frame at compute-size ratio 2, its pyramid and real
-   ICP TrackData), K2F at the pyramid's shapes, on a ragged 13x17 level,
+   ICP TrackData); K1F on that frame, on every uint16 value and at a
+   ragged size (its metres bit for bit numpy's division, the filtered
+   depth within K1_TOL, two calls bit for bit), timed beside the
+   ``mm2meters`` + K1 pair it replaces; K2F at the pyramid's shapes, on a
+   ragged 13x17 level,
    on a level with no input and on one with holes in both normal maps
    (result codes equal, the reduction within tolerance, two calls bit for
    bit), timed as one CUDA-event pair around back-to-back launches
@@ -26,8 +31,8 @@ no ``ok`` line):
 4. main path — synthesise the traj2-like clip on the card, run the
    port's CLI ``run()`` phased at 256^3 / 4.8 m / 320x240 / pyramid
    10,5,4 / -r 1, check the ATE with the port's check_pos, the tracked
-   flags, and that K1 launched once a frame, K2F once an ICP iteration
-   and the unfused K2 not at all;
+   flags, and that K1F launched once a frame, K2F once an ICP iteration,
+   and the metre-in K1 and the unfused K2 not at all;
 5. probe path — run the gather probes (``tools/mosaic_probe.py``, the
    counterpart of the TPU tool that held the Pallas gathers P1-P3, and
    ``tools/gather_probe.py``) at their full shapes; every entry must
@@ -124,6 +129,38 @@ def fused_work(result: torch.Tensor):
     return nbytes, ops
 
 
+def k1f_work(in_shape, ratio: int):
+    """(bytes, f32 operations) of K1F on an int32 frame of ``in_shape``
+    at stride ``ratio``: each output row reads the 32-byte sectors that
+    its samples lie in (at stride 2 the whole input row) and two f32
+    maps are written; each output does one division and 25 taps."""
+    from slambench_tpu_torch.tools.mosaic_probe import K1_OPS_PER_TAP
+    h, w = (-(-n // ratio) for n in in_shape)
+    sectors = np.unique(np.arange(w) * ratio * 4 // 32).size
+    return h * sectors * 32 + 2 * 4 * h * w, (K1_OPS_PER_TAP * 25 + 1) * h * w
+
+
+def check_k1f(name: str, mm: torch.Tensor, ratio: int, lut) -> float:
+    """K1F against its twin: metres bit for bit numpy's IEEE division,
+    the filtered depth within K1_TOL, two calls bit for bit."""
+    from slambench_tpu_torch.ops.hopper import bilateral
+    from slambench_tpu_torch.tools.mosaic_probe import K1_TOL
+    fd, sd = bilateral.mm2m_bilateral_cuda(mm, ratio, lut)
+    fd2, sd2 = bilateral.mm2m_bilateral_cuda(mm, ratio, lut)
+    _, want = bilateral.mm2m_bilateral_plain(mm, ratio, lut)
+    ieee = mm.cpu().numpy()[::ratio, ::ratio].astype(np.float32) \
+        / np.float32(1000)
+    off = int((fd.cpu().numpy().view(np.uint32) != ieee.view(np.uint32))
+              .sum())
+    if fd.shape != want.shape or off:
+        raise RuntimeError(f"K1F {name}: float_depth {tuple(fd.shape)}, "
+                           f"{off} values differ from IEEE division")
+    if not (torch.equal(fd, fd2)
+            and torch.equal(sd.view(torch.int32), sd2.view(torch.int32))):
+        raise RuntimeError(f"K1F {name}: two calls differ")
+    return compare(f"K1F mm2m_bilateral {name}", sd, want, K1_TOL)
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: torch.cuda.is_available() is False; this "
@@ -186,6 +223,29 @@ def phase_kernels(dev: torch.device) -> dict:
     log(f"  K1 240x320: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, "
         f"bound {bound_ms(k1_bytes, k1_ops):.5f} ms "
         f"({bound_by(k1_bytes, k1_ops)})")
+
+    # K1F, mm2meters fused into K1: the frame path's kernel.
+    rng = np.random.default_rng(1)
+    ragged = rng.integers(300, 5000, (25, 33))
+    ragged[rng.random(ragged.shape) < 0.1] = 0
+    k1f_err = max(
+        check_k1f("240x320 from the 640x480 frame", mm_dev, 2, lut),
+        check_k1f("every uint16 value 256x256", torch.arange(
+            65536, dtype=torch.int32, device=dev).reshape(256, 256), 1, lut),
+        check_k1f("ragged 13x17 at ratio 2", torch.from_numpy(
+            ragged.astype(np.int32)).to(dev), 2, lut))
+    k1f_bytes, k1f_ops = k1f_work(tuple(mm_dev.shape), 2)
+    k1f = {"max_abs_err": k1f_err,
+           "ms": time_ms("K1F", lambda: bilateral.mm2m_bilateral_cuda(
+               mm_dev, 2, lut)),
+           "plain_ms": time_ms("K1F plain", lambda: bilateral.
+                               mm2m_bilateral_plain(mm_dev, 2, lut), reps=20),
+           "pair_ms": time_ms("mm2meters + K1", lambda: bilateral.
+                              bilateral_filter_cuda(
+                                  mm2meters(mm_dev, 2).contiguous(), lut)),
+           "bound_ms": bound_ms(k1f_bytes, k1f_ops),
+           "bound_by": bound_by(k1f_bytes, k1f_ops)}
+    log(f"  K1F 240x320: {k1f}")
 
     # Real TrackData per pyramid level: the level maps against the
     # full-size level-0 maps under a small pose offset.
@@ -287,6 +347,7 @@ def phase_kernels(dev: torch.device) -> dict:
     return {"k1": {"max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
                    "bound_ms": bound_ms(k1_bytes, k1_ops),
                    "bound_by": bound_by(k1_bytes, k1_ops)},
+            "k1f": k1f,
             "k2": {"max_abs_err": k2_err, "by_shape": k2_times},
             "k2f": {"max_abs_err": kf_err, "by_shape": kf_times}}
 
@@ -365,14 +426,15 @@ def phase_main_path(dev: torch.device, work: str) -> dict:
     config = parse_args(["-i", man["raw"], "-o", log_path, *CLI_ARGS])
 
     bilateral.launches = 0
+    bilateral.fused_launches = 0
     reduce.launches = 0
     reduce.fused_launches = 0
     t0 = time.monotonic()
     summary = run(config, dev, quiet=True)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {"K1": bilateral.launches, "K2": reduce.launches,
-                "K2F": reduce.fused_launches}
+    launches = {"K1": bilateral.launches, "K1F": bilateral.fused_launches,
+                "K2": reduce.launches, "K2F": reduce.fused_launches}
 
     logd = parse_benchmark_log(log_path)
     ate = compute_ate(logd, load_gt_trajectory(man["gt"]))["ATE"]
@@ -393,8 +455,11 @@ def phase_main_path(dev: torch.device, work: str) -> dict:
                            f"{np.nonzero(tracked[5:] == 0)[0] + 5}")
     if not ate.mean() < ATE_MEAN_BOUND:
         raise RuntimeError(f"ATE mean {ate.mean():.5f} m >= {ATE_MEAN_BOUND}")
-    if launches["K1"] != n:
-        raise RuntimeError(f"K1 launches {launches['K1']} != frames {n}")
+    if launches["K1F"] != n:
+        raise RuntimeError(f"K1F launches {launches['K1F']} != frames {n}")
+    if launches["K1"] != 0:
+        raise RuntimeError(f"the metre-in K1 launched {launches['K1']} "
+                           f"times on the main path; preprocessing runs K1F")
     if launches["K2F"] != icp_iters:
         raise RuntimeError(f"K2F launches {launches['K2F']} != ICP "
                            f"iterations {icp_iters}")
@@ -427,6 +492,7 @@ def phase_probes(dev: torch.device) -> dict:
     log("[5/6 probe path] tools/mosaic_probe.py and tools/gather_probe.py "
         "at full shapes")
     bilateral.launches = 0
+    bilateral.fused_launches = 0
     reduce.launches = 0
     reduce.fused_launches = 0
     for name in gather.launches:
@@ -473,16 +539,26 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="slb_smoke_") as work:
         mp = phase_main_path(dev, work)
     pr = phase_probes(dev)
-    k1, k2, k2f = kr["k1"], kr["k2"], kr["k2f"]
+    k1, k1f, k2, k2f = kr["k1"], kr["k1f"], kr["k2"], kr["k2f"]
     k2_0 = k2["by_shape"]["240x320"]
     k2f_0 = k2f["by_shape"]["240x320"]
     rows = [
+        # The frame path runs K1F (K1's launches there are 0, asserted in
+        # phase 4); the metre-in K1 runs on the probe path.
         {"name": "K1 bilateral_filter", "route": "cuda",
          "source": "slambench_tpu_torch/ops/hopper/csrc/bilateral.cu",
          "replaces": "slambench_tpu/ops/pallas/bilateral.py:64",
-         "launches": mp["launches"]["K1"], "max_abs_err": k1["max_abs_err"],
+         "launches": pr["launches"]["K1"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None},
+        {"name": "K1F mm2m_bilateral (mm2meters fused into K1)",
+         "route": "cuda",
+         "source": "slambench_tpu_torch/ops/hopper/csrc/bilateral.cu",
+         "replaces": "slambench_tpu/ops/pallas/bilateral.py:64",
+         "launches": mp["launches"]["K1F"], "max_abs_err": k1f["max_abs_err"],
+         "ms": k1f["ms"], "plain_ms": k1f["plain_ms"],
+         "bound_ms": k1f["bound_ms"], "bound_by": k1f["bound_by"],
          "library_ms": None},
         # The frame path runs K2F (K2's launches there are 0, asserted in
         # phase 4); the unfused K2 runs on the probe path.
@@ -520,7 +596,7 @@ def main() -> int:
               for tool in ("mosaic", "gather")
               for k, v in pr[tool].items() if isinstance(v, dict)}
     log("[6/6 report]")
-    log(json.dumps({"main_path": mp, "k2_by_shape": k2["by_shape"],
+    log(json.dumps({"main_path": mp, "k1f": k1f, "k2_by_shape": k2["by_shape"],
                     "k2f_by_shape": k2f["by_shape"]}))
     log("probe entries [count, ns/elem, library ns/elem, bound ns/elem, "
         "host-paced]: " + json.dumps(probes))

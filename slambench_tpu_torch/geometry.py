@@ -11,25 +11,36 @@ solve keeps TooN ``GR_SVD::backsub``'s 1e6 condition clamp
 
 from __future__ import annotations
 
-import functools
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 _F32 = torch.float32
 
 
-@functools.lru_cache(maxsize=256)
+# (repr(values), dtype, device) -> the uploaded tensor. The key holds
+# repr(values) so that values that compare equal but differ in bits or
+# type (0.0 and -0.0, 1 and 1.0) get tensors of their own.
+_constants: Dict[Tuple[str, torch.dtype, torch.device], torch.Tensor] = {}
+
+
 def constant(values: tuple, dtype: torch.dtype,
              device: torch.device) -> torch.Tensor:
-    """A small read-only constant tensor, uploaded once per device.
+    """A small read-only constant tensor, uploaded once per
+    ``(values, dtype, device)`` and returned from a cache after that.
 
-    ``torch.tensor(..., device="cuda")`` is a blocking host-to-device
-    copy; the frame step builds its constants here so that its loops
-    (the ICP iterations, the raycast) queue device work without stalls.
-    Callers must not write to the result.
+    ``torch.tensor(..., device="cuda")`` is a pageable host-to-device
+    copy that synchronises the host with the card; the frame step builds
+    its constants here so that its loops (the ICP iterations, the
+    raycast) queue device work without stalls. The tensor is shared by
+    every caller: callers must not write to it.
     """
-    return torch.tensor(values, dtype=dtype, device=device)
+    key = (repr(values), dtype, torch.device(device))
+    out = _constants.get(key)
+    if out is None:
+        out = _constants[key] = torch.tensor(values, dtype=dtype,
+                                             device=device)
+    return out
 
 
 def _bottom_row(device) -> torch.Tensor:

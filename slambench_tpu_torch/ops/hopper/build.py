@@ -65,6 +65,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.slb_bilateral_f32.argtypes = [vp, vp, ci, ci, vp, cf, vp]
     lib.slb_bilateral_f32.restype = ci
+    lib.slb_mm2m_bilateral_f32.argtypes = [vp, vp, vp, ci, ci, ci, vp, cf,
+                                           vp]
+    lib.slb_mm2m_bilateral_f32.restype = ci
     lib.slb_reduce_track_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                          vp]
     lib.slb_reduce_track_f32.restype = ci

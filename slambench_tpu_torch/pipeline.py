@@ -6,7 +6,7 @@ leaf names, dtypes and layouts, so a state converts between the two
 packages leaf for leaf (``convert.py``). ``KFusion`` runs the four
 phases of the reference's ``Kfusion`` class on one ``torch.device``:
 
-* preprocessing — mm2meters, then the bilateral filter (kernel K1);
+* preprocessing — mm2meters and the bilateral filter in one kernel (K1F);
 * tracking — half-sample pyramid, vertex/normal maps, coarse-to-fine
   ICP with one fused track + reduce kernel (K2) per iteration, checkPose;
 * integration — TSDF fusion and the min-mip rebuild;
@@ -31,11 +31,11 @@ from slambench_tpu_torch.geometry import (
     get_camera_matrix, get_inverse_camera_matrix, mat4mul, rigid_inverse,
     translation_pose,
 )
-from slambench_tpu_torch.ops.hopper.bilateral import bilateral_filter_cuda
+from slambench_tpu_torch.ops.hopper.bilateral import mm2m_bilateral_cuda
 from slambench_tpu_torch.ops.hopper.reduce import track_reduce_cuda
 from slambench_tpu_torch.ops.integrate import integrate
 from slambench_tpu_torch.ops.preprocess import (
-    half_sample_robust, make_gaussian, mm2meters,
+    half_sample_robust, make_gaussian,
 )
 from slambench_tpu_torch.ops.raycast_fast import make_min_mip, raycast_fast_maps
 from slambench_tpu_torch.ops.solve import check_pose, update_pose
@@ -152,12 +152,11 @@ class KFusion:
 
     def preprocessing(self, state: KFusionState,
                       input_depth: torch.Tensor) -> KFusionState:
-        """mm->m conversion + bilateral filter
+        """mm->m conversion + bilateral filter, one kernel launch
         (reference: cpp/kernels.cpp:915-922)."""
         ratio = input_depth.shape[1] // self.W
-        fd = mm2meters(input_depth, ratio).contiguous()
-        sd0 = bilateral_filter_cuda(fd, self.gaussian, params.E_DELTA,
-                                    params.RADIUS)
+        fd, sd0 = mm2m_bilateral_cuda(input_depth, ratio, self.gaussian,
+                                      params.E_DELTA, params.RADIUS)
         return dataclasses.replace(state, float_depth=fd, scaled_depth0=sd0)
 
     def _build_pyramid(self, sd0: torch.Tensor) -> List[torch.Tensor]:

@@ -9,8 +9,11 @@ object (and writes it to ``--out`` when given):
 * ``phase_ms``: mean fenced host wall time per phase and per frame;
 * ``device_busy_ms`` / ``device_idle_share``: union of CUDA kernel
   intervals in the window over the window's wall time;
-* ``kernel_launches_per_frame``, the hand kernels' device time
-  (``hand_kernels_ms``) and the top kernels by device time.
+* ``kernel_launches_per_frame`` (every device event: kernels, copies,
+  fills), ``htod_copies_per_frame`` (host-to-device copies, each of
+  which the host waits for unless it is from pinned memory), the hand
+  kernels' device time (``hand_kernels_ms``) and the top kernels by
+  device time.
 
 On the CPU (``--device cpu``) there is no device trace: the device
 fields are null ("not measured").
@@ -41,7 +44,8 @@ from slambench_tpu_torch.policy import (
 )
 
 # Device-kernel name fragments of the hand kernels (ops/hopper/csrc).
-HAND_KERNELS = {"K1 bilateral": "bilateral_kernel",
+HAND_KERNELS = {"K1 bilateral": "metre_bilateral_kernel",
+                "K1F mm2m_bilateral": "mm2m_bilateral_kernel",
                 "K2 reduce": "reduce_track_kernel",
                 "K2F track_reduce": "track_reduce_kernel"}
 
@@ -119,7 +123,8 @@ def profile_frames(device: torch.device, volume: int, image, ratio: int,
         "frames": frames, "tracked": bool(state.tracked),
         "phase_ms": {k: 1e3 * v / frames for k, v in phase_s.items()},
         "device_busy_ms": None, "device_idle_share": None,
-        "kernel_launches_per_frame": None, "hand_kernels_ms": None,
+        "kernel_launches_per_frame": None, "htod_copies_per_frame": None,
+        "hand_kernels_ms": None,
         "top_kernels_ms": None,
     }
     if device.type == "cuda":
@@ -135,6 +140,8 @@ def profile_frames(device: torch.device, volume: int, image, ratio: int,
             device_busy_ms=busy / 1e3 / frames,
             device_idle_share=1.0 - busy / wall_us,
             kernel_launches_per_frame=len(ev) / frames,
+            htod_copies_per_frame=sum(
+                n.startswith("Memcpy HtoD") for n, _, _ in ev) / frames,
             hand_kernels_ms=hand,
             top_kernels_ms={n[:90]: us / 1e3 / frames for n, us in top})
     return result

@@ -1,7 +1,8 @@
-"""The port on a CUDA card: kernels K1, K2 and K2F (track fused into K2)
-against their plain twins at the main path's shapes, one ICP level with
-no host read, mm2meters as IEEE division, G1-G4 against their twins at
-the gather probes' shapes, and a short end-to-end run through the CLI.
+"""The port on a CUDA card: kernels K1, K1F (mm2meters fused into K1),
+K2 and K2F (track fused into K2) against their plain twins at the main
+path's shapes, one ICP level with no host read, mm2meters as IEEE
+division, G1-G4 against their twins at the gather probes' shapes, and a
+short end-to-end run through the CLI.
 
 Imports torch and the port only (no JAX), so it runs on the card's
 machine, where JAX is absent, with
@@ -27,6 +28,7 @@ from slambench_tpu_torch.ops.solve import update_pose  # noqa: E402
 from slambench_tpu_torch.ops.track import track  # noqa: E402
 from slambench_tpu_torch.ops.vertex import depth2vertex, vertex2normal  # noqa: E402
 from slambench_tpu_torch.policy import apply_precision_policy  # noqa: E402
+from slambench_tpu_torch.tools.mosaic_probe import K1_TOL  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -40,13 +42,18 @@ def dev():
 
 
 @pytest.fixture(scope="module")
-def frame(dev):
-    """A synthetic 640x480 frame at compute-size ratio 2: 240x320 metres."""
+def frame_mm(dev):
+    """A synthetic 640x480 int32 millimetre frame."""
     poses = orbit_trajectory(12, [0.34 * 4.8, 0.5 * 4.8, 0.24 * 4.8])
     mm = render_depth_frame(SyntheticScene(), poses[11],
                             (481.2, 480.0, 320.0, 240.0), (640, 480), dev)
-    return mm2meters(torch.from_numpy(mm.astype(np.int32)).to(dev), 2) \
-        .contiguous()
+    return torch.from_numpy(mm.astype(np.int32)).to(dev)
+
+
+@pytest.fixture(scope="module")
+def frame(frame_mm):
+    """The frame at compute-size ratio 2: 240x320 metres."""
+    return mm2meters(frame_mm, 2).contiguous()
 
 
 def test_bilateral_kernel_matches_plain(frame):
@@ -55,7 +62,60 @@ def test_bilateral_kernel_matches_plain(frame):
     got = bilateral.bilateral_filter_cuda(frame, g)
     assert bilateral.launches == before + 1
     torch.testing.assert_close(got, bilateral.plain(frame, g),
-                               rtol=1e-5, atol=1e-5, equal_nan=True)
+                               equal_nan=True, **K1_TOL)
+
+
+def _ieee_metres(mm: torch.Tensor, ratio: int) -> np.ndarray:
+    return mm.cpu().numpy()[::ratio, ::ratio].astype(np.float32) \
+        / np.float32(1000)
+
+
+def _check_k1f(mm: torch.Tensor, ratio: int):
+    """K1F on ``mm``: one launch; metres bit for bit numpy's division;
+    the filtered depth within K1_TOL of the twin; two calls bit for bit."""
+    g = make_gaussian()
+    before = bilateral.fused_launches
+    fd, sd = bilateral.mm2m_bilateral_cuda(mm, ratio, g)
+    assert bilateral.fused_launches == before + 1
+    want = _ieee_metres(mm, ratio)
+    assert fd.shape == sd.shape == want.shape
+    np.testing.assert_array_equal(fd.cpu().numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    want_fd, want_sd = bilateral.mm2m_bilateral_plain(mm, ratio, g)
+    assert torch.equal(fd, want_fd)
+    torch.testing.assert_close(sd, want_sd, equal_nan=True, **K1_TOL)
+    fd2, sd2 = bilateral.mm2m_bilateral_cuda(mm, ratio, g)
+    assert torch.equal(fd, fd2)
+    assert np.array_equal(sd.cpu().numpy().view(np.uint32),
+                          sd2.cpu().numpy().view(np.uint32))
+
+
+def test_k1f_matches_twin_on_the_frame(frame_mm, frame):
+    """240x320 from the 640x480 frame, the main path's shape."""
+    _check_k1f(frame_mm, 2)
+    fd, _ = bilateral.mm2m_bilateral_cuda(frame_mm, 2, make_gaussian())
+    assert torch.equal(fd, frame)
+
+
+@pytest.mark.parametrize("ratio", [1, 2, 4])
+@pytest.mark.parametrize("out_shape", [(1, 1), (13, 17), (241, 321),
+                                       (8, 32), (9, 33)])
+def test_k1f_ragged_outputs(dev, out_shape, ratio):
+    """Ragged output sizes (a single pixel, odd, one past a tile, exactly
+    one 8x32 tile and one past it) from inputs that ratio does not
+    divide, with zero holes and values up to 65,535."""
+    h, w = out_shape
+    rng = np.random.default_rng(h * 1000 + w * 10 + ratio)
+    shape = (h * ratio - ratio // 2, w * ratio - ratio // 2)
+    mm = rng.integers(300, 5000, shape)
+    mm[rng.random(shape) < 0.1] = 0
+    mm[rng.random(shape) < 0.02] = 65535
+    _check_k1f(torch.from_numpy(mm.astype(np.int32)).to(dev), ratio)
+
+
+def test_k1f_every_uint16_value(dev):
+    mm = torch.arange(65536, dtype=torch.int32, device=dev).reshape(256, 256)
+    _check_k1f(mm, 1)
 
 
 @pytest.mark.parametrize("level", [0, 1, 2])
@@ -133,10 +193,10 @@ def test_fused_kernel_no_input_level(frame, dev):
     assert (res == -1).all() and torch.equal(got, want)
 
 
-def test_icp_level_makes_no_host_read(frame, dev):
+def _icp_level_under_sync_error(frame, dev):
     """One level of KFusion.tracking's ICP loop (fused data term, pose
-    update, freeze on convergence) under sync debug mode "error": any
-    host read there raises."""
+    update, freeze on convergence), five iterations, under sync debug
+    mode "error": a host read or a synchronising copy there raises."""
     v, n, rv, rn, pose, view = _level_maps(frame, dev, 1)
     red, _ = reduce.track_reduce_cuda(v, n, rv, rn, pose, view)
     update_pose(pose, red, 1e-5)          # warm-up: build, scratch, constants
@@ -157,7 +217,26 @@ def test_icp_level_makes_no_host_read(frame, dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert reduce.fused_launches == before + 5
+    return pose, reduction
+
+
+def test_icp_level_makes_no_host_read(frame, dev):
+    """The level makes no host read, and a second run of it finds every
+    constant it asks ``geometry.constant`` for in the cache."""
+    pose, reduction = _icp_level_under_sync_error(frame, dev)
     assert torch.isfinite(pose).all() and int(reduction[28]) > 0
+    cached = {k: id(v) for k, v in G._constants.items()}
+    _icp_level_under_sync_error(frame, dev)
+    assert {k: id(v) for k, v in G._constants.items()} == cached
+
+
+def test_sync_check_sees_an_uncached_constant(frame, dev, monkeypatch):
+    """The check above fails when ``geometry.constant`` uploads on every
+    call: the pageable copy synchronises and sync debug mode raises."""
+    monkeypatch.setattr(G, "constant", lambda values, dtype, device:
+                        torch.tensor(values, dtype=dtype, device=device))
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        _icp_level_under_sync_error(frame, dev)
 
 
 def test_mm2meters_on_card_is_ieee_division_for_every_uint16(dev):
@@ -170,8 +249,8 @@ def test_mm2meters_on_card_is_ieee_division_for_every_uint16(dev):
 
 def test_cli_on_card(dev, tmp_path):
     """12 frames of the 160x120 clip at 64^3 through the CLI on the card:
-    tracked from frame 4, one K1 launch per frame, 19 K2F per frame and
-    no unfused K2."""
+    tracked from frame 4, one K1F launch per frame and no metre-in K1,
+    19 K2F per frame and no unfused K2."""
     from slambench_tpu_torch.config import parse_args
     from slambench_tpu_torch.eval.check_pos import (
         compute_ate, load_gt_trajectory, parse_benchmark_log,
@@ -183,10 +262,11 @@ def test_cli_on_card(dev, tmp_path):
     cfg = parse_args(["-i", man["raw"], "-o", log_path, "-v", "64",
                       "-s", "4.8", "-p", "0.34,0.5,0.24", "-c", "1", "-r", "1",
                       "-k", "120.3,120.0,80,60"])
-    bilateral.launches = reduce.launches = reduce.fused_launches = 0
+    bilateral.launches = bilateral.fused_launches = 0
+    reduce.launches = reduce.fused_launches = 0
     run(cfg, dev, quiet=True)
-    assert bilateral.launches == 12 and reduce.fused_launches == 12 * 19
-    assert reduce.launches == 0
+    assert bilateral.fused_launches == 12 and bilateral.launches == 0
+    assert reduce.fused_launches == 12 * 19 and reduce.launches == 0
     log = parse_benchmark_log(log_path)
     assert log["tracked"][4:].all()
     assert compute_ate(log, load_gt_trajectory(man["gt"]))["ATE"].mean() < 0.06
