@@ -30,20 +30,34 @@ no ``ok`` line):
    shapes, which must agree exactly;
 4. main path — synthesise the traj2-like clip on the card, run the
    port's CLI ``run()`` phased at 256^3 / 4.8 m / 320x240 / pyramid
-   10,5,4 / -r 1, check the ATE with the port's check_pos, the tracked
-   flags, and that K1F launched once a frame, K2F once an ICP iteration,
-   and the metre-in K1 and the unfused K2 not at all;
-5. probe path — run the gather probes (``tools/mosaic_probe.py``, the
+   10,5,4 / -r 1 / -z 4, check the ATE with the port's check_pos, the
+   tracked flags, that K1F launched once a frame, K2F once an ICP
+   iteration, and the metre-in K1 and the unfused K2 not at all; the
+   ``rendering`` column > 0 on every frame and ``total >= computation +
+   rendering``; on the final state, the depth, track and normal images
+   on the card within one grey level of a CPU copy's on >= 99.9% of
+   pixels, and the min-mip render route losing <= 0.1% of the oracle
+   route's hits;
+5. resume — frames 0-14 with ``--checkpoint``, then ``--resume`` to
+   frame 29: the poses equal phase 4's within 1e-6 m;
+6. oracle + cv — ``--backend jnp --motion-model cv`` on the same clip at
+   full size with KERNEL_TIMINGS=1: tracked from frame 5, ATE mean
+   < 0.06 m, K1F once a frame and K2F once an ICP iteration; the port's
+   ``eval/check_kernels.py`` reads the stderr lines, and the per-kernel
+   means are printed;
+7. probe path — run the gather probes (``tools/mosaic_probe.py``, the
    counterpart of the TPU tool that held the Pallas gathers P1-P3, and
    ``tools/gather_probe.py``) at their full shapes; every entry must
    agree with its plain twin and every kernel's launch count must move;
-6. report — one JSON line of kernel results (time, plain and library
+8. report — one JSON line of kernel results (time, plain and library
    time, bound, launches), the nvidia-smi line, and the final
    ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -56,9 +70,15 @@ import torch
 
 N_FRAMES = 30
 PYRAMID = (10, 5, 4)
+VOLUME = 256
 CLI_ARGS = ["-s", "4.8", "-p", "0.34,0.5,0.24", "-z", "4", "-c", "2",
-            "-r", "1", "-k", "481.2,480,320,240", "-v", "256,256,256"]
+            "-r", "1", "-k", "481.2,480,320,240", "-v", f"{VOLUME}"]
 ATE_MEAN_BOUND = 0.03           # metres, the synth2 class (ROADMAP.md)
+CV_ATE_MEAN_BOUND = 0.06        # test_pipeline_e2e.py::test_cv_motion_model_e2e
+RESUME_AT = 15                  # phase 5 checkpoints after frames 0-14
+RESUME_TOL = 1e-6               # test_pipeline_e2e.py:183
+RENDERING_RATE = 4              # CLI_ARGS' -z
+MIP_LOST_SHARE = 1e-3           # of the oracle render's hits
 
 
 def log(msg: str) -> None:
@@ -167,7 +187,7 @@ def phase_device() -> str:
                          "smoke test needs a CUDA card")
     from slambench_tpu_torch.policy import apply_precision_policy
     smi = nvidia_smi_line()
-    log(f"[1/6 device] {smi} | torch {torch.__version__} | CUDA "
+    log(f"[1/8 device] {smi} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     apply_precision_policy()
     return smi
@@ -178,7 +198,7 @@ def phase_build() -> None:
     t0 = time.monotonic()
     path = build.build()
     build.load()
-    log(f"[2/6 build] {os.path.relpath(path)} in "
+    log(f"[2/8 build] {os.path.relpath(path)} in "
         f"{time.monotonic() - t0:.2f} s (nvcc {build.build_seconds:.2f} s)")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
@@ -201,7 +221,7 @@ def phase_kernels(dev: torch.device) -> dict:
     )
     from slambench_tpu_torch.tools.timing import bound_by, bound_ms
 
-    log("[3/6 kernels] kernel vs plain torch on the card")
+    log("[3/8 kernels] kernel vs plain torch on the card")
     dim = (4.8, 4.8, 4.8)
     poses = orbit_trajectory(12, [0.34 * 4.8, 0.5 * 4.8, 0.24 * 4.8])
     depth_mm = render_depth_frame(SyntheticScene(dim=dim), poses[11],
@@ -405,47 +425,116 @@ def phase_gathers(dev: torch.device) -> dict:
     return {k: 0.0 for k in g.launches}
 
 
-def phase_main_path(dev: torch.device, work: str) -> dict:
-    from slambench_tpu_torch.config import parse_args
-    from slambench_tpu_torch.eval.check_pos import (
-        compute_ate, load_gt_trajectory, parse_benchmark_log,
-    )
-    from slambench_tpu_torch.frontend.benchmark import run
-    from slambench_tpu_torch.io.synthetic import generate_dataset
+def reset_launches() -> None:
     from slambench_tpu_torch.ops.hopper import bilateral, reduce
-
-    log(f"[4/6 main path] traj2-like clip, {N_FRAMES} frames 640x480, "
-        f"CLI {' '.join(CLI_ARGS)}")
-    t0 = time.monotonic()
-    man = generate_dataset(work, dev, n_frames=N_FRAMES,
-                           image_size=(640, 480), dim=(4.8, 4.8, 4.8),
-                           init_pos_factor=(0.34, 0.5, 0.24), amp=0.25,
-                           period=60)
-    log(f"  synthesised on the card in {time.monotonic() - t0:.2f} s")
-    log_path = os.path.join(work, "benchmark.log")
-    config = parse_args(["-i", man["raw"], "-o", log_path, *CLI_ARGS])
-
     bilateral.launches = 0
     bilateral.fused_launches = 0
     reduce.launches = 0
     reduce.fused_launches = 0
-    t0 = time.monotonic()
-    summary = run(config, dev, quiet=True)
+
+
+def frame_launches() -> dict:
+    from slambench_tpu_torch.ops.hopper import bilateral, reduce
+    return {"K1": bilateral.launches, "K1F": bilateral.fused_launches,
+            "K2": reduce.launches, "K2F": reduce.fused_launches}
+
+
+def check_frame_launches(launches: dict, frames: int, what: str) -> None:
+    """K1F once a frame, K2F once an ICP iteration (-r 1: every frame
+    tracks), the metre-in K1 and the unfused K2 never."""
+    want = {"K1": 0, "K1F": frames, "K2": 0, "K2F": sum(PYRAMID) * frames}
+    if launches != want:
+        raise RuntimeError(f"{what}: launches {launches}, expected {want}")
+
+
+def run_cli(man: dict, dev: torch.device, log_path: str, extra=(),
+            **kw) -> dict:
+    from slambench_tpu_torch.config import parse_args
+    from slambench_tpu_torch.frontend.benchmark import run
+    config = parse_args(["-i", man["raw"], "-o", log_path, *CLI_ARGS,
+                         *extra])
+    summary = run(config, dev, quiet=True, **kw)
     torch.cuda.synchronize()
+    return summary
+
+
+def grey_levels_agree(name: str, got: torch.Tensor,
+                      want: torch.Tensor) -> float:
+    """Share of pixels of two uint8 images within one grey level; fails
+    below 99.9%."""
+    if got.dtype != torch.uint8 or got.shape != want.shape:
+        raise RuntimeError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
+                           f"{want.dtype} {tuple(want.shape)}")
+    d = (got.cpu().to(torch.int32) - want.cpu().to(torch.int32)).abs()
+    share = float((d.amax(dim=-1) <= 1).float().mean())
+    if share < 0.999:
+        raise RuntimeError(f"{name}: only {share:.5f} of pixels within one "
+                           "grey level of the CPU's")
+    log(f"  {name} card vs CPU: {share:.6f} of {d.shape[0] * d.shape[1]} "
+        f"pixels within 1 grey level (max {int(d.max())})")
+    return share
+
+
+def check_renders(kf, state) -> dict:
+    """The final state's images on the card against a CPU copy's, and
+    the min-mip render route against the oracle route on the card."""
+    from slambench_tpu_torch import params
+    from slambench_tpu_torch.geometry import (
+        get_inverse_camera_matrix, mat4mul,
+    )
+    from slambench_tpu_torch.ops.render import (
+        render_depth, render_normal, render_track, render_volume,
+    )
+    out = {}
+    for name, fn, leaf in (("render_depth", render_depth, "float_depth"),
+                           ("render_track", render_track, "track_result"),
+                           ("render_normal", render_normal, "ref_normal")):
+        x = getattr(state, leaf)
+        out[name] = grey_levels_agree(name, fn(x), fn(x.cpu()))
+    view = mat4mul(state.pose, get_inverse_camera_matrix(kf._k))
+    args = (state.tsdf, kf.volume_dimensions, view, (kf.H, kf.W),
+            params.NEAR_PLANE, params.FAR_PLANE * 2.0, kf.step, 0.75 * kf.mu)
+    hits = {}
+    for route, mip in (("oracle", None), ("mip", state.mip)):
+        img = render_volume(*args, mip=mip)
+        torch.cuda.synchronize()
+        hits[route] = img[..., :3].amax(dim=-1) > 0
+    n_oracle = int(hits["oracle"].sum())
+    lost = int((hits["oracle"] & ~hits["mip"]).sum())
+    added = int((hits["mip"] & ~hits["oracle"]).sum())
+    if n_oracle == 0 or lost > MIP_LOST_SHARE * n_oracle:
+        raise RuntimeError(f"render_volume: the mip route lost {lost} of "
+                           f"the oracle route's {n_oracle} hits")
+    log(f"  render_volume on the card: oracle {n_oracle} hits, mip route "
+        f"lost {lost} and added {added}")
+    out.update(volume_oracle_hits=n_oracle, volume_mip_lost=lost,
+               volume_mip_added=added)
+    return out
+
+
+def phase_main_path(dev: torch.device, man: dict, work: str) -> dict:
+    from slambench_tpu_torch.eval.check_pos import (
+        compute_ate, load_gt_trajectory, parse_benchmark_log,
+    )
+
+    log(f"[4/8 main path] traj2-like clip, {N_FRAMES} frames 640x480, "
+        f"CLI {' '.join(CLI_ARGS)}")
+    log_path = os.path.join(work, "benchmark.log")
+    reset_launches()
+    t0 = time.monotonic()
+    summary = run_cli(man, dev, log_path)
     wall = time.monotonic() - t0
-    launches = {"K1": bilateral.launches, "K1F": bilateral.fused_launches,
-                "K2": reduce.launches, "K2F": reduce.fused_launches}
+    launches = frame_launches()
 
     logd = parse_benchmark_log(log_path)
     ate = compute_ate(logd, load_gt_trajectory(man["gt"]))["ATE"]
     tracked = logd["tracked"].astype(int)
     n = summary["frames"]
-    icp_iters = sum(PYRAMID) * n          # -t 1: every frame tracks
     state = summary["state"]
     for name in ("ref_vertex", "ref_normal", "pose"):
         if not bool(torch.isfinite(getattr(state, name)).all()):
             raise RuntimeError(f"state.{name} holds non-finite values")
-    if tuple(state.tsdf.shape) != (256, 256, 256) \
+    if tuple(state.tsdf.shape) != (VOLUME,) * 3 \
             or state.tsdf.dtype != torch.int16:
         raise RuntimeError(f"tsdf {tuple(state.tsdf.shape)} {state.tsdf.dtype}")
     if n != N_FRAMES:
@@ -455,41 +544,139 @@ def phase_main_path(dev: torch.device, work: str) -> dict:
                            f"{np.nonzero(tracked[5:] == 0)[0] + 5}")
     if not ate.mean() < ATE_MEAN_BOUND:
         raise RuntimeError(f"ATE mean {ate.mean():.5f} m >= {ATE_MEAN_BOUND}")
-    if launches["K1F"] != n:
-        raise RuntimeError(f"K1F launches {launches['K1F']} != frames {n}")
-    if launches["K1"] != 0:
-        raise RuntimeError(f"the metre-in K1 launched {launches['K1']} "
-                           f"times on the main path; preprocessing runs K1F")
-    if launches["K2F"] != icp_iters:
-        raise RuntimeError(f"K2F launches {launches['K2F']} != ICP "
-                           f"iterations {icp_iters}")
-    if launches["K2"] != 0:
-        raise RuntimeError(f"the unfused K2 launched {launches['K2']} times "
-                           f"on the main path; tracking runs K2F")
+    check_frame_launches(launches, n, "main path")
+    rendering = logd["rendering"]
+    if not (rendering > 0).all():
+        raise RuntimeError(f"rendering column 0 at frames "
+                           f"{np.nonzero(rendering <= 0)[0]}")
+    if not (logd["total"] >= logd["computation"] + rendering).all():
+        raise RuntimeError("total < computation + rendering on some frame")
 
     steady = slice(5, None)
     ms = {k: 1e3 * float(np.mean(np.asarray(summary[k])[steady]))
           for k in ("preprocessing", "tracking", "integration",
-                    "raycasting", "computation")}
+                    "raycasting", "rendering", "computation", "total")}
     comp = 1e3 * np.asarray(summary["computation"])[steady]
+    volume = np.arange(n) % RENDERING_RATE == 0
+    rend = 1e3 * np.asarray(summary["rendering"])
     ms.update(computation_median=float(np.median(comp)),
               computation_p90=float(np.percentile(comp, 90)),
               steady_frames=int(comp.size),
               computation_all_frames=1e3 * float(np.mean(
-                  summary["computation"])))
+                  summary["computation"])),
+              rendering_with_volume=float(rend[volume].mean()),
+              rendering_without_volume=float(rend[~volume].mean()),
+              rendering_frames_with_volume=int(volume.sum()))
     log(f"  ATE mean {ate.mean():.5f} m, max {ate.max():.5f} m; tracked "
         f"{int(tracked.sum())}/{n}; launches {launches}; run {wall:.2f} s")
     log("  steady-state (frames 5..) ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in ms.items()))
+    renders = check_renders(summary["kfusion"], state)
     return {"launches": launches, "ate_mean": float(ate.mean()),
-            "ate_max": float(ate.max()), "ms": ms}
+            "ate_max": float(ate.max()), "ms": ms, "renders": renders,
+            "positions": np.stack([logd["X"], logd["Y"], logd["Z"]], 1),
+            "final_pose": state.pose.cpu().numpy()}
+
+
+def phase_resume(dev: torch.device, man: dict, work: str,
+                 main: dict) -> dict:
+    """Frames 0-14 with --checkpoint, then --resume to frame 29; the
+    logged positions (each frame's start pose) of frames 15-29 and the
+    final pose must equal phase 4's within RESUME_TOL."""
+    from slambench_tpu_torch.eval.check_pos import parse_benchmark_log
+
+    log(f"[5/8 resume] frames 0-{RESUME_AT - 1} with --checkpoint, then "
+        f"--resume to frame {N_FRAMES - 1}")
+    ck = os.path.join(work, "state.npz")
+    rest_log = os.path.join(work, "resumed.log")
+    reset_launches()
+    run_cli(man, dev, os.path.join(work, "first.log"),
+            ["--checkpoint", ck], max_frames=RESUME_AT)
+    summary = run_cli(man, dev, rest_log, ["--resume", ck])
+    launches = frame_launches()
+    check_frame_launches(launches, N_FRAMES, "resume path")
+    logd = parse_benchmark_log(rest_log)
+    if not np.array_equal(logd["frame"], np.arange(RESUME_AT, N_FRAMES)):
+        raise RuntimeError(f"resumed log frames {logd['frame']}")
+    pos = np.stack([logd["X"], logd["Y"], logd["Z"]], 1)
+    d_pos = float(np.abs(pos - main["positions"][RESUME_AT:]).max())
+    d_pose = float(np.abs(summary["state"].pose.cpu().numpy()
+                          - main["final_pose"]).max())
+    log(f"  largest difference from phase 4: positions {d_pos:.3e} m, "
+        f"final pose {d_pose:.3e}; launches {launches}")
+    if d_pos > RESUME_TOL or d_pose > RESUME_TOL:
+        raise RuntimeError(f"resumed run differs from phase 4: positions "
+                           f"{d_pos:.3e} m, final pose {d_pose:.3e}")
+    return {"launches": launches, "max_position_diff": d_pos,
+            "max_final_pose_diff": d_pose}
+
+
+def phase_oracle_cv(dev: torch.device, man: dict, work: str) -> dict:
+    """The oracle march and the cv warm start at full size, with
+    KERNEL_TIMINGS=1 read back through the port's check_kernels."""
+    from slambench_tpu_torch.eval.check_kernels import (
+        aggregate_kernel_log, print_statistics,
+    )
+    from slambench_tpu_torch.eval.check_pos import (
+        compute_ate, load_gt_trajectory, parse_benchmark_log,
+    )
+
+    extra = ["--backend", "jnp", "--motion-model", "cv"]
+    log(f"[6/8 oracle + cv] {' '.join(extra)}, KERNEL_TIMINGS=1")
+    log_path = os.path.join(work, "oracle_cv.log")
+    err = io.StringIO()
+    reset_launches()
+    os.environ["KERNEL_TIMINGS"] = "1"
+    try:
+        with contextlib.redirect_stderr(err):
+            summary = run_cli(man, dev, log_path, extra)
+    finally:
+        del os.environ["KERNEL_TIMINGS"]
+    launches = frame_launches()
+    n = summary["frames"]
+    check_frame_launches(launches, n, "oracle + cv path")
+    logd = parse_benchmark_log(log_path)
+    ate = compute_ate(logd, load_gt_trajectory(man["gt"]))["ATE"]
+    tracked = logd["tracked"].astype(int)
+    if not tracked[5:].all():
+        raise RuntimeError(f"oracle + cv: untracked frames >= 5: "
+                           f"{np.nonzero(tracked[5:] == 0)[0] + 5}")
+    if not ate.mean() < CV_ATE_MEAN_BOUND:
+        raise RuntimeError(f"oracle + cv: ATE mean {ate.mean():.5f} m >= "
+                           f"{CV_ATE_MEAN_BOUND}")
+    agg = aggregate_kernel_log(err.getvalue().splitlines())
+    want = {"mm2meters+bilateralFilter": n, "track+reduce": sum(PYRAMID) * n,
+            "updatePose": sum(PYRAMID) * n, "renderDepth": n,
+            "renderTrack": n, "raycast": n - 3,
+            "renderVolume": -(-n // RENDERING_RATE)}
+    counts = {k: len(agg.get(k, ())) for k in want}
+    if counts != want or not {"integrate", "minMip"} <= set(agg):
+        raise RuntimeError(f"KERNEL_TIMINGS lines {counts} (and "
+                           f"{sorted(agg)}), expected {want}")
+    table = io.StringIO()
+    print_statistics(agg, table)
+    log("  KERNEL_TIMINGS (ns, CUDA events, all frames):")
+    for line in table.getvalue().splitlines():
+        log("    " + line)
+    steady = slice(5, None)
+    ms = {k: 1e3 * float(np.mean(np.asarray(summary[k])[steady]))
+          for k in ("preprocessing", "tracking", "integration",
+                    "raycasting", "rendering", "computation", "total")}
+    log(f"  ATE mean {ate.mean():.5f} m, max {ate.max():.5f} m; tracked "
+        f"{int(tracked.sum())}/{n}; launches {launches}")
+    log("  steady-state (frames 5..) ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ms.items()))
+    return {"launches": launches, "ate_mean": float(ate.mean()),
+            "ate_max": float(ate.max()), "ms": ms,
+            "kernel_mean_ns": {k: float(v.mean()) for k, v in agg.items()},
+            "kernel_count": {k: int(v.size) for k, v in agg.items()}}
 
 
 def phase_probes(dev: torch.device) -> dict:
     from slambench_tpu_torch.ops.hopper import bilateral, gather, reduce
     from slambench_tpu_torch.tools import gather_probe, mosaic_probe
 
-    log("[5/6 probe path] tools/mosaic_probe.py and tools/gather_probe.py "
+    log("[7/8 probe path] tools/mosaic_probe.py and tools/gather_probe.py "
         "at full shapes")
     bilateral.launches = 0
     bilateral.fused_launches = 0
@@ -529,6 +716,7 @@ G_ROWS = (
 
 
 def main() -> int:
+    from slambench_tpu_torch.io.synthetic import generate_dataset
     from slambench_tpu_torch.tools.timing import bound_by, bound_ms
 
     smi = phase_device()
@@ -537,7 +725,16 @@ def main() -> int:
     kr = phase_kernels(dev)
     g_err = phase_gathers(dev)
     with tempfile.TemporaryDirectory(prefix="slb_smoke_") as work:
-        mp = phase_main_path(dev, work)
+        t0 = time.monotonic()
+        man = generate_dataset(work, dev, n_frames=N_FRAMES,
+                               image_size=(640, 480), dim=(4.8, 4.8, 4.8),
+                               init_pos_factor=(0.34, 0.5, 0.24), amp=0.25,
+                               period=60)
+        log(f"  clip synthesised on the card in "
+            f"{time.monotonic() - t0:.2f} s")
+        mp = phase_main_path(dev, man, work)
+        rs = phase_resume(dev, man, work, mp)
+        oc = phase_oracle_cv(dev, man, work)
     pr = phase_probes(dev)
     k1, k1f, k2, k2f = kr["k1"], kr["k1f"], kr["k2"], kr["k2f"]
     k2_0 = k2["by_shape"]["240x320"]
@@ -595,8 +792,11 @@ def main() -> int:
                               v["bound_ns_per_elem"], v["host_bound"]]
               for tool in ("mosaic", "gather")
               for k, v in pr[tool].items() if isinstance(v, dict)}
-    log("[6/6 report]")
-    log(json.dumps({"main_path": mp, "k1f": k1f, "k2_by_shape": k2["by_shape"],
+    log("[8/8 report]")
+    mp_report = {k: v for k, v in mp.items()
+                 if k not in ("positions", "final_pose")}
+    log(json.dumps({"main_path": mp_report, "resume": rs, "oracle_cv": oc,
+                    "k1f": k1f, "k2_by_shape": k2["by_shape"],
                     "k2f_by_shape": k2f["by_shape"]}))
     log("probe entries [count, ns/elem, library ns/elem, bound ns/elem, "
         "host-paced]: " + json.dumps(probes))

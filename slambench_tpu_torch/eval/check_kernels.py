@@ -1,0 +1,103 @@
+"""Per-kernel timing statistics from 'name nanoseconds' stderr streams
+(a copy of ``slambench_tpu/eval/check_kernels.py``; the port imports
+nothing of the JAX package).
+
+Re-implementation of the reference's kernel-log aggregator
+(reference: kfusion/thirdparty/checkKernels.py): parses lines of
+``kernelName duration_ns [size]`` (produced with KERNEL_TIMINGS set by
+``slambench_tpu_torch.utils.timers``), unifies backend-specific
+kernel-name variants (reference: checkKernels.py:16-32) and prints
+count/min/max/mean per kernel.
+
+CLI: ``python -m slambench_tpu_torch.eval.check_kernels <kernels.log>``.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Dict, List
+
+import numpy as np
+
+# Kernel-name unification across backends
+# (reference: checkKernels.py:16-32 merges CUDA/OpenCL/CPP variants).
+UNIFY = {
+    "mm2metersKernel": "mm2meters",
+    "mm2meters": "mm2meters",
+    "bilateralFilterKernel": "bilateralFilter",
+    "bilateral_filter": "bilateralFilter",
+    "halfSampleRobustImageKernel": "halfSampleRobustImage",
+    "half_sample": "halfSampleRobustImage",
+    "depth2vertexKernel": "depth2vertex",
+    "depth2vertex": "depth2vertex",
+    "vertex2normalKernel": "vertex2normal",
+    "vertex2normal": "vertex2normal",
+    "trackKernel": "track",
+    "track": "track",
+    "reduceKernel": "reduce",
+    "reduce": "reduce",
+    "track_and_reduce": "track+reduce",
+    "integrateKernel": "integrate",
+    "integrate": "integrate",
+    "raycastKernel": "raycast",
+    "raycast": "raycast",
+    "renderDepthKernel": "renderDepth",
+    "renderTrackKernel": "renderTrack",
+    "renderVolumeKernel": "renderVolume",
+    "initVolumeKernel": "initVolume",
+    "updatePoseKernel": "updatePose",
+    "solve": "updatePose",
+    "checkPoseKernel": "checkPose",
+    "renderDepth": "renderDepth",
+    "renderTrack": "renderTrack",
+    "renderVolume": "renderVolume",
+    # TPU-only kernel (min-mip maintenance; no reference counterpart).
+    "make_min_mip": "minMip",
+    # The port's fused hand kernels: K1F and K2F.
+    "mm2m_bilateral": "mm2meters+bilateralFilter",
+    "track_reduce": "track+reduce",
+}
+
+
+def aggregate_kernel_log(path_or_lines) -> Dict[str, np.ndarray]:
+    """Aggregate a kernel-timing stream into name -> durations_ns."""
+    if isinstance(path_or_lines, str):
+        with open(path_or_lines) as f:
+            lines: List[str] = f.read().splitlines()
+    else:
+        lines = list(path_or_lines)
+    out: Dict[str, List[float]] = {}
+    for line in lines:
+        parts = line.split()
+        if len(parts) < 2:
+            continue
+        name = UNIFY.get(parts[0], parts[0])
+        try:
+            ns = float(parts[1])
+        except ValueError:
+            continue
+        out.setdefault(name, []).append(ns)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def print_statistics(agg: Dict[str, np.ndarray], out=sys.stdout) -> None:
+    total = 0.0
+    for name in sorted(agg.keys()):
+        v = agg[name]
+        total += float(np.sum(v))
+        print("%28.28s\tcount : %d\tMin : %10.0f\tMax : %10.0f\tMean : %10.0f"
+              % (name, len(v), np.min(v), np.max(v), np.mean(v)), file=out)
+    print("%28.28s\tTotal ns : %0.0f" % ("ALL", total), file=out)
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    if len(argv) != 1:
+        print("I need one parameter, the kernel timing log file.")
+        return 1
+    print_statistics(aggregate_kernel_log(argv[0]))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

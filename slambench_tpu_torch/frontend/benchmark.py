@@ -1,16 +1,25 @@
 """Headless benchmark front-end of the port: the counterpart of
 ``python -m slambench_tpu.frontend.benchmark``.
 
-Reads depth frames, runs the four phases, and writes the reference's
-14-column TSV log that ``eval/check_pos.py`` reads
-(reference: kfusion/src/benchmark.cpp:47-190). Two timing modes:
+Reads depth frames, runs the four phases, renders the diagnostic
+images, and writes the reference's 14-column TSV log that
+``eval/check_pos.py`` reads (reference: kfusion/src/benchmark.cpp:47-190).
+Two timing modes:
 
   * phased (default): ``torch.cuda.synchronize()`` before every
     timestamp, the reference's ``synchroniseDevices()`` per phase;
-  * fused (``--fused``): one fence per frame; per-phase columns are 0
-    and ``computation`` holds the frame.
+  * fused (``--fused``): one fence for the frame's computation;
+    per-phase columns are 0 and ``computation`` holds the frame.
 
-Rendering is not ported yet: the ``rendering`` column is always 0.
+In both, the rendering phase (the depth and track images every frame,
+the shaded volume every ``rendering_rate`` frames) is fenced on its own
+and written to the ``rendering`` column; ``total`` includes it.
+``--checkpoint FILE`` saves the state after the loop and ``--resume
+FILE`` continues from one (the JAX package's ``.npz``; either package's
+file loads in the other). With KERNEL_TIMINGS set, each frame's kernel
+spans go to stderr as ``name ns size`` lines
+(``eval/check_kernels.py`` reads them).
+
 The device is ``cuda`` unless ``--device cpu`` is given; a missing card
 is an error, never a quiet fallback to the CPU.
 
@@ -20,7 +29,6 @@ Usage:  python -m slambench_tpu_torch.frontend.benchmark -i scene.raw
 
 from __future__ import annotations
 
-import os
 import sys
 import time
 from typing import Optional
@@ -34,14 +42,14 @@ from slambench_tpu_torch.pipeline import KFusion, frame_gates
 from slambench_tpu_torch.policy import (
     apply_precision_policy, resolve_device, synchronize,
 )
+from slambench_tpu_torch.utils.checkpoint import load_state, save_state
 
 HEADER = ("frame\tacquisition\tpreprocessing\ttracking\tintegration"
           "\traycasting\trendering\tcomputation\ttotal    \tX          "
           "\tY          \tZ         \ttracked   \tintegrated")
 
 # Front-end flags of the JAX CLI that this port does not implement yet
-# (the config options --mesh, --checkpoint and --resume are refused by
-# ``run``).
+# (the config option --mesh is refused by ``run``).
 NOT_PORTED_FLAGS = ("--scan-chunk", "--keyframes", "--ba", "--stats",
                     "--break-on-untracked", "--break-at-frame",
                     "--debug-nans", "--report-device")
@@ -50,15 +58,11 @@ NOT_PORTED_FLAGS = ("--scan-chunk", "--keyframes", "--ba", "--stats",
 def run(config: Configuration, device: torch.device, fused: bool = False,
         max_frames: Optional[int] = None, quiet: bool = False) -> dict:
     """Run the benchmark on ``device``; returns summary statistics with
-    per-frame phase times in seconds."""
-    if config.mesh or config.checkpoint_file or config.resume_file:
+    per-frame phase times in seconds. ``max_frames`` is the frame index
+    to stop at (a resumed run starts at the checkpoint's frame)."""
+    if config.mesh:
         raise NotImplementedError(
-            "--mesh, --checkpoint and --resume are not ported yet "
-            "(ROADMAP.md, queue 1)")
-    if os.environ.get("KERNEL_TIMINGS"):
-        raise NotImplementedError(
-            "KERNEL_TIMINGS per-kernel timing is not ported yet "
-            "(ROADMAP.md, queue 1, item 9)")
+            "--mesh is not ported yet (ROADMAP.md, queue 1, item 14)")
     apply_precision_policy()
     reader = make_reader(config)
     if reader is None or not reader.camera_open:
@@ -75,7 +79,15 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
                  config.init_pose, config.pyramid, camera, mu=config.mu,
                  icp_threshold=config.icp_threshold, backend=config.backend,
                  motion_model=config.motion_model, device=device)
-    state = kf.init_state()
+    frame = 0
+    if config.resume_file:
+        state, frame = load_state(config.resume_file, device)
+        print(f"resumed from {config.resume_file} at frame {frame}",
+              file=sys.stderr)
+        for _ in range(frame):            # advance the reader cursor
+            reader.get_next_frame()
+    else:
+        state = kf.init_state()
 
     def fence() -> float:
         synchronize(device)
@@ -83,12 +95,12 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
 
     logfile = open(config.log_file, "w") if config.log_file else None
     logstream = logfile or sys.stdout
-    phases = ("preprocessing", "tracking", "integration", "raycasting")
+    phases = ("preprocessing", "tracking", "integration", "raycasting",
+              "rendering")
     summary = {"frames": 0, "computation": [], "total": [],
                **{p: [] for p in phases}}
     try:
         print(HEADER, file=logstream)
-        frame = 0
         t0 = time.monotonic()
         while max_frames is None or frame < max_frames:
             depth_np = reader.read_next_depth_frame()
@@ -120,16 +132,23 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
                 if gates["raycast_on"]:
                     state = kf.raycasting(state)
                 t5 = fence()
-            t6 = time.monotonic()
+            # Rendering (reference: benchmark.cpp:153-156).
+            kf.render_depth_image(state)
+            kf.render_track_image(state)
+            if frame % config.rendering_rate == 0:
+                kf.render_volume_image(state)
+            t6 = fence()
+            kf.timings.flush()
             tracked = int(bool(state.tracked))
             integrated = int(bool(state.integrated))
             print("%d\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f"
                   "\t%.10f\t%.10f\t%.10f\t%d        \t%d"
                   % (frame, t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4,
-                     0.0, t5 - t1, t6 - t0, xt, yt, zt, tracked, integrated),
+                     t6 - t5, t5 - t1, t6 - t0, xt, yt, zt, tracked,
+                     integrated),
                   file=logstream)
             for name, dt in zip(phases, (t2 - t1, t3 - t2, t4 - t3,
-                                         t5 - t4)):
+                                         t5 - t4, t6 - t5)):
                 summary[name].append(dt)
             summary["computation"].append(t5 - t1)
             summary["total"].append(t6 - t0)
@@ -139,6 +158,11 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
     finally:
         if logfile:
             logfile.close()
+
+    if config.checkpoint_file:
+        save_state(config.checkpoint_file, state, frame)
+        print(f"checkpoint written to {config.checkpoint_file}",
+              file=sys.stderr)
 
     if config.dump_volume_file:
         kf.dump_volume(state, config.dump_volume_file)

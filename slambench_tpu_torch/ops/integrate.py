@@ -14,6 +14,7 @@ from typing import Tuple
 import torch
 
 from slambench_tpu_torch import params
+from slambench_tpu_torch.casts import f32_to_i32
 from slambench_tpu_torch.volume import Dim3, pack_tsdf, voxel_centers_axis
 
 
@@ -55,8 +56,8 @@ def integrate(tsdf: torch.Tensor,
     in_front = pz >= 1e-4
     in_img = (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1)
 
-    ui = torch.clamp(u.to(torch.int32), 0, W - 1)
-    vi = torch.clamp(v.to(torch.int32), 0, H - 1)
+    ui = torch.clamp(f32_to_i32(u), 0, W - 1)
+    vi = torch.clamp(f32_to_i32(v), 0, H - 1)
     d = depth.reshape(-1)[(vi * W + ui).long()]
 
     corr = torch.sqrt(1.0 + (px / pz) ** 2 + (py / pz) ** 2)

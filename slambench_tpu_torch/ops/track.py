@@ -20,6 +20,7 @@ from typing import Dict, Tuple
 import torch
 
 from slambench_tpu_torch import params
+from slambench_tpu_torch.casts import f32_to_i32
 from slambench_tpu_torch.geometry import (
     cross3, dot3, length3, rotate, transform,
 )
@@ -51,10 +52,10 @@ def track(in_vertex: torch.Tensor,
     in_bounds = ((px >= 0) & (px <= W - 1) & (py >= 0) & (py <= H - 1)
                  & torch.isfinite(px) & torch.isfinite(py))
 
-    # Cast and clamp BEFORE indexing: a NaN/inf cast is INT_MIN on the
-    # CPU (and saturates on CUDA), so only the clamp keeps it in range.
-    u = torch.clamp(px.to(torch.int32), 0, W - 1)
-    v = torch.clamp(py.to(torch.int32), 0, H - 1)
+    # Cast with XLA's semantics (NaN -> 0, saturate), then clamp, so a
+    # -2 pixel gathers where the JAX package's does.
+    u = torch.clamp(f32_to_i32(px), 0, W - 1)
+    v = torch.clamp(f32_to_i32(py), 0, H - 1)
     flat = (v * W + u).long()
 
     refs = torch.cat([ref_normal.reshape(3, -1),

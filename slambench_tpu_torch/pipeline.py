@@ -10,12 +10,24 @@ phases of the reference's ``Kfusion`` class on one ``torch.device``:
 * tracking — half-sample pyramid, vertex/normal maps, coarse-to-fine
   ICP with one fused track + reduce kernel (K2) per iteration, checkPose;
 * integration — TSDF fusion and the min-mip rebuild;
-* raycasting — the min-mip skip march for the next reference maps.
+* raycasting — the next reference maps: the min-mip skip march, or the
+  oracle trilinear march for the ``jnp`` backend.
+
+The backend names ``fast``, ``pallas`` and ``auto`` run the min-mip
+march and ``jnp`` the oracle march; every name runs the hand kernels K1F
+and K2F on the card. The render methods give the reference's three
+diagnostic images.
 
 The ICP loop runs each level's fixed iteration budget with no host read:
 a level that converges freezes its pose, reduction and result codes from
 the converging iteration on (the JAX ``while_loop`` applies the update of
-the step that reports convergence, then stops).
+the step that reports convergence, then stops). ``motion_model="cv"``
+starts it from a damped constant-velocity prediction (``cv_predict``),
+computed on the device.
+
+With KERNEL_TIMINGS set, ``KFusion.timings`` records a span around each
+K1F and K2F launch, the pose solve, integrate, the min-mip, the raycast
+and each render (``utils/timers.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ import torch
 from slambench_tpu_torch import params
 from slambench_tpu_torch.geometry import (
     get_camera_matrix, get_inverse_camera_matrix, mat4mul, rigid_inverse,
-    translation_pose,
+    se3_exp, se3_log, translation_pose,
 )
 from slambench_tpu_torch.ops.hopper.bilateral import mm2m_bilateral_cuda
 from slambench_tpu_torch.ops.hopper.reduce import track_reduce_cuda
@@ -37,12 +49,18 @@ from slambench_tpu_torch.ops.integrate import integrate
 from slambench_tpu_torch.ops.preprocess import (
     half_sample_robust, make_gaussian,
 )
+from slambench_tpu_torch.ops.raycast import raycast_maps
 from slambench_tpu_torch.ops.raycast_fast import make_min_mip, raycast_fast_maps
+from slambench_tpu_torch.ops.render import (
+    render_depth, render_track, render_volume,
+)
 from slambench_tpu_torch.ops.solve import check_pose, update_pose
 from slambench_tpu_torch.ops.vertex import depth2vertex, vertex2normal
+from slambench_tpu_torch.utils.timers import KernelTimings
 from slambench_tpu_torch.volume import init_volume
 
 BACKENDS = ("jnp", "fast", "pallas", "auto")
+MOTION_MODELS = ("none", "cv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +84,23 @@ class KFusionState:
     integrated: torch.Tensor    # bool []
 
 
+def cv_predict(pose: torch.Tensor, old_pose: torch.Tensor,
+               damping: float = 0.5, max_step: float = 0.04) -> torch.Tensor:
+    """Damped constant-velocity ICP warm start (JAX ``cv_predict``).
+
+    With ``pose = old_pose @ D``, ``D`` the last camera-frame motion, the
+    prediction is ``pose @ exp(damping * clamp(log(D)))``: the twist's
+    norm is capped at ``max_step`` and halved, which keeps the guess in
+    the coarse level's basin. After a rejected frame ``D = I`` and the
+    prediction is the previous pose. All on the device: no host read.
+    """
+    xi = se3_log(mat4mul(rigid_inverse(old_pose), pose))
+    norm = torch.clamp(torch.linalg.vector_norm(xi), min=1e-12)
+    scale = damping * torch.clamp(torch.full_like(norm, max_step) / norm,
+                                  max=1.0)
+    return mat4mul(pose, se3_exp(xi * scale))
+
+
 class KFusion:
     """Pipeline driver for one run configuration on one device."""
 
@@ -82,21 +117,16 @@ class KFusion:
                  motion_model: str = "none",
                  *,
                  device: torch.device):
-        # "fast", "pallas" and "auto" name the JAX package's tiers; here
-        # they all run the same path (min-mip raycast, kernels K1/K2 on
-        # CUDA). "jnp" is the oracle raycast, not ported yet.
+        # The backend picks the raycast march only: "jnp" the oracle,
+        # the others the min-mip march. Kernels K1F/K2F run for all.
         if backend not in BACKENDS:
             raise ValueError(
                 f"unknown backend {backend!r}: use jnp|fast|pallas|auto")
-        if backend == "jnp":
-            raise NotImplementedError(
-                "backend 'jnp' (the oracle raycast, ops/raycast.py "
-                "raycast_maps) is not ported yet: ROADMAP.md, queue 1, "
-                "'ops/raycast.py oracle (jnp tier)'")
-        if motion_model != "none":
-            raise NotImplementedError(
-                f"motion_model {motion_model!r} is not ported yet "
-                "(ROADMAP.md, queue 1, item 8: cv_predict)")
+        # ICP start: "none" the previous pose (the reference), "cv" the
+        # constant-velocity prediction.
+        if motion_model not in MOTION_MODELS:
+            raise ValueError(
+                f"unknown motion_model {motion_model!r}: use none|cv")
         self.device = torch.device(device)
         W, H = computation_size
         self.W, self.H = W, H
@@ -115,6 +145,7 @@ class KFusion:
         self._levels = len(self.iterations)
         self._k = torch.tensor(self.camera, dtype=torch.float32,
                                device=self.device)
+        self.timings = KernelTimings(self.device)
 
     # ------------------------------------------------------------------ #
 
@@ -155,8 +186,9 @@ class KFusion:
         """mm->m conversion + bilateral filter, one kernel launch
         (reference: cpp/kernels.cpp:915-922)."""
         ratio = input_depth.shape[1] // self.W
-        fd, sd0 = mm2m_bilateral_cuda(input_depth, ratio, self.gaussian,
-                                      params.E_DELTA, params.RADIUS)
+        with self.timings.span("mm2m_bilateral", self.H * self.W):
+            fd, sd0 = mm2m_bilateral_cuda(input_depth, ratio, self.gaussian,
+                                          params.E_DELTA, params.RADIUS)
         return dataclasses.replace(state, float_depth=fd, scaled_depth0=sd0)
 
     def _build_pyramid(self, sd0: torch.Tensor) -> List[torch.Tensor]:
@@ -179,9 +211,13 @@ class KFusion:
         old_pose = state.pose
         view = mat4mul(get_camera_matrix(self._k),
                        rigid_inverse(state.raycast_pose))
-        pose = state.pose
+        if self.motion_model == "cv":
+            pose = cv_predict(state.pose, state.old_pose)
+        else:
+            pose = state.pose
         reduction = state.reduction
         track_result = state.track_result
+        span = self.timings.span
 
         for level in reversed(range(self._levels)):
             h, w = self.H >> level, self.W >> level
@@ -189,10 +225,13 @@ class KFusion:
                                        device=self.device)
             done = torch.zeros((), dtype=torch.bool, device=self.device)
             for _ in range(self.iterations[level]):
-                red, result = track_reduce_cuda(
-                    verts[level], norms[level], state.ref_vertex,
-                    state.ref_normal, pose, view)
-                new_pose, conv = update_pose(pose, red, self.icp_threshold)
+                with span("track_reduce", h * w):
+                    red, result = track_reduce_cuda(
+                        verts[level], norms[level], state.ref_vertex,
+                        state.ref_normal, pose, view)
+                with span("updatePose", 1):
+                    new_pose, conv = update_pose(pose, red,
+                                                 self.icp_threshold)
                 pose = torch.where(done, pose, new_pose)
                 reduction = torch.where(done, reduction, red)
                 level_result = torch.where(done, level_result, result)
@@ -227,11 +266,13 @@ class KFusion:
             should = bool(ok)
         tsdf, weight, mip = state.tsdf, state.weight, state.mip
         if should:
-            tsdf, weight = integrate(
-                tsdf, weight, state.float_depth, rigid_inverse(pose),
-                get_camera_matrix(self._k), self.mu, params.MAX_WEIGHT,
-                self.volume_dimensions)
-            mip = make_min_mip(tsdf)
+            with self.timings.span("integrate", tsdf.numel()):
+                tsdf, weight = integrate(
+                    tsdf, weight, state.float_depth, rigid_inverse(pose),
+                    get_camera_matrix(self._k), self.mu, params.MAX_WEIGHT,
+                    self.volume_dimensions)
+            with self.timings.span("minMip", tsdf.numel()):
+                mip = make_min_mip(tsdf)
         return dataclasses.replace(
             state, pose=pose, tsdf=tsdf, weight=weight, mip=mip,
             integrated=torch.full((), should, dtype=torch.bool,
@@ -239,12 +280,22 @@ class KFusion:
 
     def raycasting(self, state: KFusionState) -> KFusionState:
         """Surface prediction from the current pose
-        (reference: cpp/kernels.cpp:973-986)."""
+        (reference: cpp/kernels.cpp:973-986). The oracle march keeps no
+        hit distances: ``prev_t_hit`` holds zeros, as in JAX."""
         view = mat4mul(state.pose, get_inverse_camera_matrix(self._k))
-        vertex, normal, t_hit = raycast_fast_maps(
-            state.tsdf, state.mip, self.volume_dimensions, view,
-            (self.H, self.W), params.NEAR_PLANE, params.FAR_PLANE,
-            self.step, 0.75 * self.mu)
+        with self.timings.span("raycast", self.H * self.W):
+            if self.backend == "jnp":
+                vertex, normal = raycast_maps(
+                    state.tsdf, self.volume_dimensions, view,
+                    (self.H, self.W), params.NEAR_PLANE, params.FAR_PLANE,
+                    self.step, 0.75 * self.mu)
+                t_hit = torch.zeros((self.H, self.W), dtype=torch.float32,
+                                    device=self.device)
+            else:
+                vertex, normal, t_hit = raycast_fast_maps(
+                    state.tsdf, state.mip, self.volume_dimensions, view,
+                    (self.H, self.W), params.NEAR_PLANE, params.FAR_PLANE,
+                    self.step, 0.75 * self.mu)
         return dataclasses.replace(
             state, raycast_pose=state.pose, ref_vertex=vertex,
             ref_normal=normal, prev_t_hit=t_hit)
@@ -272,6 +323,27 @@ class KFusion:
         return self.compute_frame(
             state, self.to_device(input_depth),
             **frame_gates(frame, tracking_rate, integration_rate))
+
+    # ---------------------------- rendering --------------------------- #
+
+    def render_depth_image(self, state: KFusionState) -> torch.Tensor:
+        with self.timings.span("renderDepth", self.H * self.W):
+            return render_depth(state.float_depth)
+
+    def render_track_image(self, state: KFusionState) -> torch.Tensor:
+        with self.timings.span("renderTrack", self.H * self.W):
+            return render_track(state.track_result)
+
+    def render_volume_image(self, state: KFusionState) -> torch.Tensor:
+        """The shaded volume from the current pose, out to twice the far
+        plane; the min-mip march unless the backend is ``jnp``."""
+        view = mat4mul(state.pose, get_inverse_camera_matrix(self._k))
+        with self.timings.span("renderVolume", self.H * self.W):
+            return render_volume(
+                state.tsdf, self.volume_dimensions, view, (self.H, self.W),
+                params.NEAR_PLANE, params.FAR_PLANE * 2.0, self.step,
+                0.75 * self.mu,
+                mip=None if self.backend == "jnp" else state.mip)
 
     # ---------------------------- utilities --------------------------- #
 

@@ -24,7 +24,10 @@ from slambench_tpu_torch.ops.hopper import bilateral, build, gather, reduce  # n
 from slambench_tpu_torch.ops.preprocess import (  # noqa: E402
     half_sample_robust, make_gaussian, mm2meters,
 )
+from slambench_tpu_torch.ops import render  # noqa: E402
+from slambench_tpu_torch.ops.raycast_fast import make_min_mip  # noqa: E402
 from slambench_tpu_torch.ops.solve import update_pose  # noqa: E402
+from slambench_tpu_torch.pipeline import cv_predict  # noqa: E402
 from slambench_tpu_torch.ops.track import track  # noqa: E402
 from slambench_tpu_torch.ops.vertex import depth2vertex, vertex2normal  # noqa: E402
 from slambench_tpu_torch.policy import apply_precision_policy  # noqa: E402
@@ -193,13 +196,19 @@ def test_fused_kernel_no_input_level(frame, dev):
     assert (res == -1).all() and torch.equal(got, want)
 
 
-def _icp_level_under_sync_error(frame, dev):
+def _icp_level_under_sync_error(frame, dev, motion_model="none"):
     """One level of KFusion.tracking's ICP loop (fused data term, pose
     update, freeze on convergence), five iterations, under sync debug
-    mode "error": a host read or a synchronising copy there raises."""
+    mode "error": a host read or a synchronising copy there raises. With
+    ``motion_model="cv"`` the level starts from ``cv_predict`` of the
+    pose and a previous pose 2 cm and 0.01 rad behind it, computed in the
+    same mode."""
     v, n, rv, rn, pose, view = _level_maps(frame, dev, 1)
+    old_pose = G.mat4mul(pose, G.se3_exp(torch.tensor(
+        [-0.02, 0.01, 0.0, 0.0, 0.01, 0.0], device=dev)))
     red, _ = reduce.track_reduce_cuda(v, n, rv, rn, pose, view)
     update_pose(pose, red, 1e-5)          # warm-up: build, scratch, constants
+    cv_predict(pose, old_pose)
     torch.cuda.synchronize()
     done = torch.zeros((), dtype=torch.bool, device=dev)
     reduction = torch.zeros(32, device=dev)
@@ -207,6 +216,8 @@ def _icp_level_under_sync_error(frame, dev):
     before = reduce.fused_launches
     torch.cuda.set_sync_debug_mode("error")
     try:
+        if motion_model == "cv":
+            pose = cv_predict(pose, old_pose)
         for _ in range(5):
             red, res = reduce.track_reduce_cuda(v, n, rv, rn, pose, view)
             new_pose, conv = update_pose(pose, red, 1e-5)
@@ -228,6 +239,13 @@ def test_icp_level_makes_no_host_read(frame, dev):
     cached = {k: id(v) for k, v in G._constants.items()}
     _icp_level_under_sync_error(frame, dev)
     assert {k: id(v) for k, v in G._constants.items()} == cached
+
+
+def test_icp_level_with_cv_start_makes_no_host_read(frame, dev):
+    """The cv warm start (``pipeline.cv_predict``: SE(3) log, the norm,
+    its clamp, the exp) adds no host read in front of the level."""
+    pose, reduction = _icp_level_under_sync_error(frame, dev, "cv")
+    assert torch.isfinite(pose).all() and int(reduction[28]) > 0
 
 
 def test_sync_check_sees_an_uncached_constant(frame, dev, monkeypatch):
@@ -270,6 +288,44 @@ def test_cli_on_card(dev, tmp_path):
     log = parse_benchmark_log(log_path)
     assert log["tracked"][4:].all()
     assert compute_ate(log, load_gt_trajectory(man["gt"]))["ATE"].mean() < 0.06
+
+
+def _grey_levels_agree(name, got, want):
+    """Two uint8 images within one grey level on >= 99.9% of pixels."""
+    assert got.dtype == want.dtype == torch.uint8
+    assert got.shape == want.shape
+    d = (got.cpu().to(torch.int32) - want.to(torch.int32)).abs()
+    share = float((d.amax(dim=-1) <= 1).float().mean())
+    assert share >= 0.999, f"{name}: {share:.5f} of pixels within 1"
+
+
+def test_render_helpers_on_card_equal_cpu(dev, frame):
+    """render_depth, render_track, render_normal and both render_volume
+    routes on the card against the same calls on CPU copies."""
+    cpu = torch.device("cpu")
+    v, n, rv, rn, pose, view = _level_maps(frame, dev, 0)
+    _, res = reduce.track_reduce_cuda(v, n, rv, rn, pose, view)
+    _grey_levels_agree("render_depth", render.render_depth(frame),
+                       render.render_depth(frame.cpu()))
+    _grey_levels_agree("render_track", render.render_track(res),
+                       render.render_track(res.cpu()))
+    _grey_levels_agree("render_normal", render.render_normal(n),
+                       render.render_normal(n.cpu()))
+    c = torch.linspace(1 / 64, 2 - 1 / 64, 64, device=dev)
+    Z, Y, X = torch.meshgrid(c, c, c, indexing="ij")
+    d = torch.sqrt((X - 1.0) ** 2 + (Y - 1.0) ** 2 + (Z - 1.4) ** 2) - 0.3
+    tsdf = torch.trunc(torch.clamp(d / 0.2, -1, 1) * 32766).to(torch.int16)
+    k = torch.tensor([240.0, 240.0, 64.0, 48.0], device=dev)
+    vv = G.mat4mul(G.translation_pose([1.0, 1.0, 0.2], dev),
+                   G.get_inverse_camera_matrix(k))
+    args = ((2.0,) * 3, vv, (96, 128), 0.1, 4.0, 2.0 / 64, 0.15)
+    cargs = (args[0], vv.cpu()) + args[2:]
+    for mip in (None, make_min_mip(tsdf)):
+        got = render.render_volume(tsdf, *args, mip=mip)
+        want = render.render_volume(tsdf.cpu(), *cargs,
+                                    mip=None if mip is None else mip.cpu())
+        assert int((got[..., :3].amax(-1) > 0).sum()) > 800
+        _grey_levels_agree("render_volume", got, want)
 
 
 # ------------------------------ G1-G4 -------------------------------- #

@@ -23,6 +23,7 @@ from slambench_tpu.ops.track import reduce_track as j_reduce  # noqa: E402
 from slambench_tpu.ops.track import track as j_track  # noqa: E402
 from slambench_tpu.ops.vertex import depth2vertex, vertex2normal  # noqa: E402
 
+from slambench_tpu_torch.casts import f32_to_i32  # noqa: E402
 from slambench_tpu_torch.ops.hopper import bilateral, build, reduce  # noqa: E402
 from slambench_tpu_torch.ops.preprocess import make_gaussian  # noqa: E402
 from slambench_tpu_torch.ops.track import track as t_track  # noqa: E402
@@ -80,23 +81,46 @@ def _track_inputs(depth, level_shift=0):
     return [np.asarray(a) for a in (v, n, ref_v, ref_n, pose, view)]
 
 
+def _on_camera_plane(args):
+    """Move four level-map vertices onto the camera's z = 0 plane (to
+    f32 rounding), at x = +-10 m and y = +-10 m: their projections reach
+    far past the int32 range or are infinite, so the reference-map index
+    gathered there (for the error and J of a -2 pixel, or of a -1 pixel
+    where the normal map has a hole) depends on how the float coordinate
+    is cast to int32."""
+    v, n, rv, rn, pose, view = args
+    inv = np.linalg.inv(pose.astype(np.float64))
+    v = v.copy()
+    for i, (x, y) in enumerate(((10.0, 10.0), (-10.0, 10.0),
+                                (10.0, -10.0), (-10.0, -10.0))):
+        v[:, 2, 2 + 3 * i] = (inv @ (x, y, 0.0, 1.0))[:3]
+    return [v, n, rv, rn, pose, view]
+
+
 @pytest.mark.parametrize("level_shift", [0, 1])
 def test_track_matches_jax(depth_image, level_shift):
-    args = _track_inputs(depth_image, level_shift)
+    args = _on_camera_plane(_track_inputs(depth_image, level_shift))
     got = t_track(*[T(a) for a in args])
     want = j_track(*[jnp.asarray(a) for a in args])
     res = np.asarray(want["result"])
     np.testing.assert_array_equal(got["result"].numpy(), res)
-    assert set(np.unique(res)) >= {1, -1, -4}
-    # -2 pixels gather at a clamped index whose cast of a non-finite
-    # projection differs between frameworks; every other code is compared.
-    m = res != -2
-    np.testing.assert_allclose(got["error"].numpy()[m],
-                               np.asarray(want["error"])[m],
+    assert set(np.unique(res)) >= {1, -1, -2, -4}
+    # Every code, -2 included: the port casts the projection to int32 as
+    # XLA does (casts.f32_to_i32), so it gathers at the same index.
+    np.testing.assert_allclose(got["error"].numpy(),
+                               np.asarray(want["error"]),
                                rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(got["J"].numpy()[:, m],
-                               np.asarray(want["J"])[:, m],
+    np.testing.assert_allclose(got["J"].numpy(), np.asarray(want["J"]),
                                rtol=1e-4, atol=1e-5)
+
+
+def test_f32_to_i32_casts_as_xla():
+    x = np.array([np.nan, np.inf, -np.inf, 3e9, -3e9, 2.7, -2.7,
+                  2147483520.0, -2147483648.0, 2147483648.0], np.float32)
+    got = f32_to_i32(T(x))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jnp.asarray(x).astype(jnp.int32)))
 
 
 def _trackdata(kind, depth_image):
