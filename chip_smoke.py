@@ -45,11 +45,28 @@ no ``ok`` line):
    < 0.06 m, K1F once a frame and K2F once an ICP iteration; the port's
    ``eval/check_kernels.py`` reads the stderr lines, and the per-kernel
    means are printed;
-7. probe path — run the gather probes (``tools/mosaic_probe.py``, the
+7. inputs and observation — (a) the first 12 frames of the clip written
+   as an ICL-NUIM scene directory (ASCII euclidean depth, planarized
+   back by the reader) with an ``.scf`` file that points at it and sets
+   the camera: the scene reader's frames within 1 mm of the RAW frames
+   and equal to what ``tools/scene2raw.py`` writes; the CLI (``main``)
+   on the ``.scf`` with ``--stats --debug-nans --report-device
+   --break-at-frame 10``: 11 rows, K1F once and K2F 19 times a frame,
+   tracked from frame 4, the card's NVML rail in the stats block with
+   power > 0 W and energy > 0 J, no NaN fault, the device report naming
+   the card; (b) frames 0-14 with ``SLAMBENCH_WARM_START=1``: tracked
+   from frame 5 and ATE mean below phase 4's bound, the positions'
+   distance from phase 4's and the raycasting time beside phase 4's
+   printed (JAX's bound is not conservative at its 8x8 block edges, so
+   the warm start moves positions by millimetres: PERF.md); (c)
+   phase 6's KERNEL_TIMINGS log has a row for every row name of the JAX
+   route (``eval/check_kernels.missing_rows``), and the K1F / K2F span
+   means are printed beside phase 3's kernel times;
+8. probe path — run the gather probes (``tools/mosaic_probe.py``, the
    counterpart of the TPU tool that held the Pallas gathers P1-P3, and
    ``tools/gather_probe.py``) at their full shapes; every entry must
    agree with its plain twin and every kernel's launch count must move;
-8. report — one JSON line of kernel results (time, plain and library
+9. report — one JSON line of kernel results (time, plain and library
    time, bound, launches), the nvidia-smi line, and the final
    ``{"ok": true, ...}`` line.
 """
@@ -79,6 +96,10 @@ RESUME_AT = 15                  # phase 5 checkpoints after frames 0-14
 RESUME_TOL = 1e-6               # test_pipeline_e2e.py:183
 RENDERING_RATE = 4              # CLI_ARGS' -z
 MIP_LOST_SHARE = 1e-3           # of the oracle render's hits
+SCENE_FRAMES = 12               # phase 7 writes these as a scene directory
+SCENE_BREAK_AT = 10             # ... and runs them with --break-at-frame
+SCENE_CAMERA = "481.2,480,320,240"  # the clip's camera, set by the .scf
+WARM_FRAMES = 15                # phase 7 (b) runs frames 0-14 warm-started
 
 
 def log(msg: str) -> None:
@@ -187,7 +208,7 @@ def phase_device() -> str:
                          "smoke test needs a CUDA card")
     from slambench_tpu_torch.policy import apply_precision_policy
     smi = nvidia_smi_line()
-    log(f"[1/8 device] {smi} | torch {torch.__version__} | CUDA "
+    log(f"[1/9 device] {smi} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     apply_precision_policy()
     return smi
@@ -198,7 +219,7 @@ def phase_build() -> None:
     t0 = time.monotonic()
     path = build.build()
     build.load()
-    log(f"[2/8 build] {os.path.relpath(path)} in "
+    log(f"[2/9 build] {os.path.relpath(path)} in "
         f"{time.monotonic() - t0:.2f} s (nvcc {build.build_seconds:.2f} s)")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
@@ -221,7 +242,7 @@ def phase_kernels(dev: torch.device) -> dict:
     )
     from slambench_tpu_torch.tools.timing import bound_by, bound_ms
 
-    log("[3/8 kernels] kernel vs plain torch on the card")
+    log("[3/9 kernels] kernel vs plain torch on the card")
     dim = (4.8, 4.8, 4.8)
     poses = orbit_trajectory(12, [0.34 * 4.8, 0.5 * 4.8, 0.24 * 4.8])
     depth_mm = render_depth_frame(SyntheticScene(dim=dim), poses[11],
@@ -517,7 +538,7 @@ def phase_main_path(dev: torch.device, man: dict, work: str) -> dict:
         compute_ate, load_gt_trajectory, parse_benchmark_log,
     )
 
-    log(f"[4/8 main path] traj2-like clip, {N_FRAMES} frames 640x480, "
+    log(f"[4/9 main path] traj2-like clip, {N_FRAMES} frames 640x480, "
         f"CLI {' '.join(CLI_ARGS)}")
     log_path = os.path.join(work, "benchmark.log")
     reset_launches()
@@ -575,7 +596,9 @@ def phase_main_path(dev: torch.device, man: dict, work: str) -> dict:
     return {"launches": launches, "ate_mean": float(ate.mean()),
             "ate_max": float(ate.max()), "ms": ms, "renders": renders,
             "positions": np.stack([logd["X"], logd["Y"], logd["Z"]], 1),
-            "final_pose": state.pose.cpu().numpy()}
+            "final_pose": state.pose.cpu().numpy(),
+            "raycasting_s": np.asarray(summary["raycasting"]),
+            "ate_by_frame": ate}
 
 
 def phase_resume(dev: torch.device, man: dict, work: str,
@@ -585,7 +608,7 @@ def phase_resume(dev: torch.device, man: dict, work: str,
     final pose must equal phase 4's within RESUME_TOL."""
     from slambench_tpu_torch.eval.check_pos import parse_benchmark_log
 
-    log(f"[5/8 resume] frames 0-{RESUME_AT - 1} with --checkpoint, then "
+    log(f"[5/9 resume] frames 0-{RESUME_AT - 1} with --checkpoint, then "
         f"--resume to frame {N_FRAMES - 1}")
     ck = os.path.join(work, "state.npz")
     rest_log = os.path.join(work, "resumed.log")
@@ -622,7 +645,7 @@ def phase_oracle_cv(dev: torch.device, man: dict, work: str) -> dict:
     )
 
     extra = ["--backend", "jnp", "--motion-model", "cv"]
-    log(f"[6/8 oracle + cv] {' '.join(extra)}, KERNEL_TIMINGS=1")
+    log(f"[6/9 oracle + cv] {' '.join(extra)}, KERNEL_TIMINGS=1")
     log_path = os.path.join(work, "oracle_cv.log")
     err = io.StringIO()
     reset_launches()
@@ -672,11 +695,205 @@ def phase_oracle_cv(dev: torch.device, man: dict, work: str) -> dict:
             "kernel_count": {k: int(v.size) for k, v in agg.items()}}
 
 
+def write_scene_dir(man: dict, scene_dir: str, n: int) -> list:
+    """The clip's first ``n`` RAW frames as an ICL-NUIM scene directory:
+    ASCII euclidean ray lengths in metres (the millimetres over the
+    inverse planar factor of ``SCENE_K``), ``scene_00_%04d.depth``.
+    Returns the RAW frames."""
+    from slambench_tpu_torch.io.readers import (
+        SCENE_K, SCENE_SIZE, RawDepthReader,
+    )
+    w, h = SCENE_SIZE
+    fx, fy, cx, cy = SCENE_K
+    u = np.arange(w, dtype=np.float64)[None, :]
+    v = np.arange(h, dtype=np.float64)[:, None]
+    planar = 1.0 / np.sqrt(((u - cx) / fx) ** 2 + ((v - cy) / fy) ** 2 + 1)
+    rd = RawDepthReader(man["raw"])
+    if rd.get_input_size() != (w, h):
+        raise RuntimeError(f"clip is {rd.get_input_size()}, the scene "
+                           f"format {w}x{h}")
+    os.makedirs(scene_dir)
+    frames = []
+    for f in range(n):
+        mm = np.array(rd.read_next_depth_frame())
+        frames.append(mm)
+        euclid = mm.astype(np.float64) / 1000.0 / planar
+        np.savetxt(os.path.join(scene_dir, "scene_00_%04d.depth" % f),
+                   euclid, fmt="%.6f")
+    return frames
+
+
+def stat_line(err: str, key: str) -> dict:
+    """One series of a ``print_all_data`` block: mean, min, max, n."""
+    for line in err.splitlines():
+        parts = line.split()
+        if parts and parts[0] == key and "mean:" in parts:
+            return {"mean": float(parts[parts.index("mean:") + 1]),
+                    "min": float(parts[parts.index("min:") + 1]),
+                    "max": float(parts[parts.index("max:") + 1]),
+                    "n": int(parts[parts.index("n:") + 1])}
+    raise RuntimeError(f"--stats: no {key} series in the stats block")
+
+
+def phase_inputs(dev: torch.device, man: dict, work: str, main: dict,
+                 oracle: dict, kernels: dict, smi: str) -> dict:
+    """(a) the scene and .scf inputs through the CLI with --stats,
+    --debug-nans, --report-device and --break-at-frame; (b) the warm
+    start against phase 4; (c) phase 6's KERNEL_TIMINGS row set."""
+    from slambench_tpu_torch.eval.check_kernels import missing_rows
+    from slambench_tpu_torch.eval.check_pos import (
+        compute_ate, load_gt_trajectory, parse_benchmark_log,
+    )
+    from slambench_tpu_torch.frontend import benchmark
+    from slambench_tpu_torch.io.readers import (
+        RawDepthReader, SceneDepthReader,
+    )
+    from slambench_tpu_torch.tools import scene2raw
+
+    log(f"[7/9 inputs and observation] (a) {SCENE_FRAMES} frames as an "
+        f"ICL-NUIM scene + .scf, --stats --debug-nans --report-device "
+        f"--break-at-frame {SCENE_BREAK_AT}")
+    t0 = time.monotonic()
+    scene_dir = os.path.join(work, "scene")
+    raw_frames = write_scene_dir(man, scene_dir, SCENE_FRAMES)
+    written = time.monotonic() - t0
+    conv = os.path.join(work, "scene.raw")
+    if scene2raw.convert(scene_dir, conv, verbose=False) != SCENE_FRAMES:
+        raise RuntimeError("scene2raw did not convert every frame")
+    sr, cr = SceneDepthReader(scene_dir), RawDepthReader(conv)
+    worst = 0
+    for f, want in enumerate(raw_frames):
+        got, conv_f = sr.read_next_depth_frame(), cr.read_next_depth_frame()
+        worst = max(worst, int(np.abs(got.astype(np.int64) - want).max()))
+        if not np.array_equal(got, conv_f):
+            raise RuntimeError(f"scene reader and scene2raw differ at "
+                               f"frame {f}")
+    if worst > 1:
+        raise RuntimeError(f"scene reader is {worst} mm from the RAW frames")
+    log(f"  scene written in {written:.2f} s; reader within {worst} mm of "
+        "the RAW frames and equal to scene2raw's")
+
+    scf = os.path.join(work, "scene.scf")
+    with open(scf, "w") as f:
+        f.write(f"input_file = scene\ncamera = {SCENE_CAMERA}\n")
+    k = CLI_ARGS.index("-k")
+    args = CLI_ARGS[:k] + CLI_ARGS[k + 2:]     # the .scf sets the camera
+    scene_log = os.path.join(work, "scene.log")
+    err = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stderr(err):
+        rc = benchmark.main(["--stats", "--debug-nans", "--report-device",
+                             "--break-at-frame", str(SCENE_BREAK_AT),
+                             "-i", scf, "-o", scene_log, *args])
+    torch.cuda.synchronize()
+    err = err.getvalue()
+    launches = frame_launches()
+    if rc != 0:
+        raise RuntimeError(f"scene CLI exited {rc}: {err[-2000:]}")
+    logd = parse_benchmark_log(scene_log)
+    n = SCENE_BREAK_AT + 1
+    if not np.array_equal(logd["frame"], np.arange(n)):
+        raise RuntimeError(f"scene log rows {logd['frame']}, expected 0-"
+                           f"{SCENE_BREAK_AT}")
+    check_frame_launches(launches, n, "scene path")
+    tracked = logd["tracked"].astype(int)
+    if not tracked[4:].all():
+        raise RuntimeError(f"scene path: untracked frames >= 4: "
+                           f"{np.nonzero(tracked[4:] == 0)[0] + 4}")
+    name = torch.cuda.get_device_name(0)
+    if f"BREAK: at frame {SCENE_BREAK_AT}" not in err \
+            or name not in err or "FloatingPointError" in err:
+        raise RuntimeError(f"scene CLI stderr lacks the break, the device "
+                           f"report or is a NaN fault: {err[-2000:]}")
+    power = stat_line(err, "Power_gpu0")
+    energy = stat_line(err, "Energy_gpu0")
+    if not (power["n"] == energy["n"] == n and power["min"] > 0
+            and energy["mean"] > 0):
+        raise RuntimeError(f"NVML rail: power {power}, energy {energy}")
+    for line in err.splitlines():
+        if line.startswith(("platform:", "  device", "Power_", "Energy_",
+                            "computation ")):
+            log("    " + line)
+    acq = 1e3 * logd["acquisition"]
+    scene = {"launches": launches, "frames": n,
+             "tracked": int(tracked.sum()),
+             "acquisition_ms_mean": float(acq.mean()),
+             "acquisition_ms_median": float(np.median(acq)),
+             "computation_ms_mean": 1e3 * float(logd["computation"].mean()),
+             "power_w_per_frame": power["mean"],
+             "energy_j_per_frame": energy["mean"],
+             "energy_j_total": energy["mean"] * energy["n"],
+             "reader_max_mm": worst, "card": smi}
+    log(f"  {n} rows, tracked {int(tracked.sum())}/{n}, launches "
+        f"{launches}; acquisition {scene['acquisition_ms_mean']:.3f} ms a "
+        f"frame (scene reader); power {power['mean']:.3f} W a frame, "
+        f"energy {energy['mean']:.4f} J a frame (NVML, {smi})")
+
+    log(f"  (b) frames 0-{WARM_FRAMES - 1} with SLAMBENCH_WARM_START=1")
+    reset_launches()
+    os.environ["SLAMBENCH_WARM_START"] = "1"
+    try:
+        summary = run_cli(man, dev, os.path.join(work, "warm.log"),
+                          max_frames=WARM_FRAMES)
+    finally:
+        del os.environ["SLAMBENCH_WARM_START"]
+    if not summary["kfusion"].warm_start:
+        raise RuntimeError("SLAMBENCH_WARM_START=1 left the warm start off")
+    check_frame_launches(frame_launches(), WARM_FRAMES, "warm-start path")
+    wlog = parse_benchmark_log(os.path.join(work, "warm.log"))
+    pos = np.stack([wlog["X"], wlog["Y"], wlog["Z"]], 1)
+    d_frame = np.abs(pos - main["positions"][:WARM_FRAMES]).max(axis=1)
+    d_pos = float(d_frame.max())
+    gt = load_gt_trajectory(man["gt"])
+    ate = compute_ate(wlog, gt)["ATE"]
+    ate_main = main["ate_by_frame"][:WARM_FRAMES]
+    w_tracked = wlog["tracked"].astype(int)
+    # Checked after (c), so that a failure here still reports (c).
+    failures = []
+    if not w_tracked[5:].all() or not ate.mean() < ATE_MEAN_BOUND:
+        failures.append(f"warm start: tracked {w_tracked.tolist()}, ATE "
+                        f"mean {ate.mean():.5f} m (bound {ATE_MEAN_BOUND})")
+    rc_frames = slice(3, WARM_FRAMES)          # raycast runs on frame > 2
+    warm_ms = 1e3 * float(np.mean(np.asarray(summary["raycasting"])
+                                  [rc_frames]))
+    cold_ms = 1e3 * float(np.mean(main["raycasting_s"][rc_frames]))
+    warm = {"max_position_diff": d_pos,
+            "position_diff_by_frame": d_frame.tolist(),
+            "ate_mean": float(ate.mean()), "ate_max": float(ate.max()),
+            "ate_mean_phase4": float(ate_main.mean()),
+            "tracked": int(w_tracked.sum()),
+            "raycasting_ms_warm": warm_ms, "raycasting_ms_phase4": cold_ms}
+    log(f"  tracked {int(w_tracked.sum())}/{WARM_FRAMES}; ATE mean "
+        f"{ate.mean():.5f} m (phase 4, same frames: {ate_main.mean():.5f}); "
+        f"positions at most {d_pos:.3e} m from phase 4's; raycasting "
+        f"frames 3-{WARM_FRAMES - 1}: warm {warm_ms:.3f} ms, phase 4 "
+        f"{cold_ms:.3f} ms a frame")
+
+    missing = missing_rows(oracle["kernel_mean_ns"])
+    if missing:
+        failures.append(f"phase 6's KERNEL_TIMINGS log lacks the JAX rows "
+                        f"{missing}")
+    spans = {"K1F": oracle["kernel_mean_ns"]["mm2meters+bilateralFilter"]
+             * 1e-3,
+             "K2F": oracle["kernel_mean_ns"]["track+reduce"] * 1e-3}
+    own = {"K1F": kernels["k1f"]["ms"] * 1e3,
+           "K2F": kernels["k2f"]["by_shape"]["240x320"]["ms"] * 1e3}
+    log(f"  (c) JAX rows missing from phase 6's log: {missing}; span "
+        f"means K1F {spans['K1F']:.2f} us, K2F {spans['K2F']:.2f} us (all "
+        f"levels) "
+        f"beside the kernels' own K1F {own['K1F']:.2f} us, K2F "
+        f"{own['K2F']:.2f} us (level 0)")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return {"scene": scene, "warm_start": warm,
+            "span_mean_us": spans, "kernel_us": own}
+
+
 def phase_probes(dev: torch.device) -> dict:
     from slambench_tpu_torch.ops.hopper import bilateral, gather, reduce
     from slambench_tpu_torch.tools import gather_probe, mosaic_probe
 
-    log("[7/8 probe path] tools/mosaic_probe.py and tools/gather_probe.py "
+    log("[8/9 probe path] tools/mosaic_probe.py and tools/gather_probe.py "
         "at full shapes")
     bilateral.launches = 0
     bilateral.fused_launches = 0
@@ -735,6 +952,7 @@ def main() -> int:
         mp = phase_main_path(dev, man, work)
         rs = phase_resume(dev, man, work, mp)
         oc = phase_oracle_cv(dev, man, work)
+        io_ = phase_inputs(dev, man, work, mp, oc, kr, smi)
     pr = phase_probes(dev)
     k1, k1f, k2, k2f = kr["k1"], kr["k1f"], kr["k2"], kr["k2f"]
     k2_0 = k2["by_shape"]["240x320"]
@@ -792,10 +1010,12 @@ def main() -> int:
                               v["bound_ns_per_elem"], v["host_bound"]]
               for tool in ("mosaic", "gather")
               for k, v in pr[tool].items() if isinstance(v, dict)}
-    log("[8/8 report]")
+    log("[9/9 report]")
     mp_report = {k: v for k, v in mp.items()
-                 if k not in ("positions", "final_pose")}
+                 if k not in ("positions", "final_pose", "raycasting_s",
+                              "ate_by_frame")}
     log(json.dumps({"main_path": mp_report, "resume": rs, "oracle_cv": oc,
+                    "inputs": io_,
                     "k1f": k1f, "k2_by_shape": k2["by_shape"],
                     "k2f_by_shape": k2f["by_shape"]}))
     log("probe entries [count, ns/elem, library ns/elem, bound ns/elem, "

@@ -7,7 +7,12 @@ Re-implementation of the reference's kernel-log aggregator
 ``kernelName duration_ns [size]`` (produced with KERNEL_TIMINGS set by
 ``slambench_tpu_torch.utils.timers``), unifies backend-specific
 kernel-name variants (reference: checkKernels.py:16-32) and prints
-count/min/max/mean per kernel.
+count/min/max/mean per kernel. The port's two fused kernels give one
+row each for a pair of the reference's rows; the table says which pair
+(on the card their spans are events that the kernels' C entry points
+record right around the launch, so a span holds the launch's latency
+and the kernel), and ``missing_rows`` checks a log against the row set
+of the JAX package's KERNEL_TIMINGS route.
 
 CLI: ``python -m slambench_tpu_torch.eval.check_kernels <kernels.log>``.
 """
@@ -59,6 +64,29 @@ UNIFY = {
 }
 
 
+# The rows of the JAX package's KERNEL_TIMINGS route
+# (slambench_tpu/frontend/timed.py:117-193).
+JAX_ROWS = ("mm2meters", "bilateralFilter", "halfSampleRobustImage",
+            "depth2vertex", "vertex2normal", "track", "reduce",
+            "updatePose", "checkPose", "integrate", "minMip", "raycast")
+
+# A fused row stands for the pair of reference rows its kernel computes.
+FUSED_ROWS = {
+    "mm2meters+bilateralFilter": ("mm2meters", "bilateralFilter"),
+    "track+reduce": ("track", "reduce"),
+}
+
+
+def missing_rows(agg: Dict[str, np.ndarray]) -> List[str]:
+    """The JAX route's row names that ``agg`` has no row for, a fused
+    row counting for both of its pair."""
+    have = set(agg)
+    for fused, pair in FUSED_ROWS.items():
+        if fused in agg:
+            have.update(pair)
+    return [name for name in JAX_ROWS if name not in have]
+
+
 def aggregate_kernel_log(path_or_lines) -> Dict[str, np.ndarray]:
     """Aggregate a kernel-timing stream into name -> durations_ns."""
     if isinstance(path_or_lines, str):
@@ -88,6 +116,11 @@ def print_statistics(agg: Dict[str, np.ndarray], out=sys.stdout) -> None:
         print("%28.28s\tcount : %d\tMin : %10.0f\tMax : %10.0f\tMean : %10.0f"
               % (name, len(v), np.min(v), np.max(v), np.mean(v)), file=out)
     print("%28.28s\tTotal ns : %0.0f" % ("ALL", total), file=out)
+    for fused, pair in FUSED_ROWS.items():
+        if fused in agg:
+            print("%28.28s\tstands for %s (one fused kernel launch; on "
+                  "the card the span is the launch and the kernel)"
+                  % (fused, " + ".join(pair)), file=out)
 
 
 def main(argv=None):
@@ -95,7 +128,11 @@ def main(argv=None):
     if len(argv) != 1:
         print("I need one parameter, the kernel timing log file.")
         return 1
-    print_statistics(aggregate_kernel_log(argv[0]))
+    agg = aggregate_kernel_log(argv[0])
+    print_statistics(agg)
+    missing = missing_rows(agg)
+    if missing:
+        print("%28.28s\t%s" % ("missing JAX rows", ", ".join(missing)))
     return 0
 
 

@@ -20,15 +20,37 @@ file loads in the other). With KERNEL_TIMINGS set, each frame's kernel
 spans go to stderr as ``name ns size`` lines
 (``eval/check_kernels.py`` reads them).
 
+Observation flags, as in the JAX CLI:
+
+  * ``--stats`` samples ``frame``, ``computation`` and ``total`` into
+    ``utils/perfstats.Stats`` and the power rails into a
+    ``utils/power.PowerMonitor`` once a frame, after the frame's timed
+    window, and prints both tables to stderr at the end. On ``cuda`` the
+    rail is the card's, through NVML, and a missing NVML is an error;
+  * ``--break-on-untracked`` stops after the first untracked frame past
+    the bootstrap, ``--break-at-frame N`` after frame N; the breaking
+    frame's row is written, and the checkpoint and volume dump follow;
+  * ``--debug-nans`` checks every float tensor each phase wrote for NaN
+    (not inf, as ``jax_debug_nans``) and raises ``FloatingPointError``
+    naming the phase and the tensor; the check reads the host, so it
+    runs only under the flag;
+  * ``--report-device`` prints the platform and device table to stderr.
+
 The device is ``cuda`` unless ``--device cpu`` is given; a missing card
 is an error, never a quiet fallback to the CPU.
 
+The input (``-i``) is a ``.raw`` file, an ICL-NUIM scene directory, or
+a ``.scf`` scene-config file (``io/readers.py``).
+
 Usage:  python -m slambench_tpu_torch.frontend.benchmark -i scene.raw
         -o out.log [reference flags] [--fused] [--device cuda|cpu]
+        [--stats] [--break-on-untracked] [--break-at-frame N]
+        [--debug-nans] [--report-device]
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from typing import Optional
@@ -38,11 +60,13 @@ import torch
 
 from slambench_tpu_torch.config import Configuration, parse_args
 from slambench_tpu_torch.io.readers import make_reader
-from slambench_tpu_torch.pipeline import KFusion, frame_gates
+from slambench_tpu_torch.pipeline import KFusion, KFusionState, frame_gates
 from slambench_tpu_torch.policy import (
-    apply_precision_policy, resolve_device, synchronize,
+    apply_precision_policy, device_report, resolve_device, synchronize,
 )
+from slambench_tpu_torch.utils import power as power_mod
 from slambench_tpu_torch.utils.checkpoint import load_state, save_state
+from slambench_tpu_torch.utils.perfstats import Stats, StatType
 
 HEADER = ("frame\tacquisition\tpreprocessing\ttracking\tintegration"
           "\traycasting\trendering\tcomputation\ttotal    \tX          "
@@ -50,19 +74,49 @@ HEADER = ("frame\tacquisition\tpreprocessing\ttracking\tintegration"
 
 # Front-end flags of the JAX CLI that this port does not implement yet
 # (the config option --mesh is refused by ``run``).
-NOT_PORTED_FLAGS = ("--scan-chunk", "--keyframes", "--ba", "--stats",
-                    "--break-on-untracked", "--break-at-frame",
-                    "--debug-nans", "--report-device")
+NOT_PORTED_FLAGS = ("--scan-chunk", "--keyframes", "--ba")
+
+
+def make_power_monitor(device: torch.device) -> power_mod.PowerMonitor:
+    """The ``--stats`` monitor: the card's rail through NVML on ``cuda``
+    (exits 1 if NVML does not load), the host's sensors on the CPU."""
+    if device.type != "cuda":
+        return power_mod.PowerMonitor()
+    try:
+        return power_mod.PowerMonitor(nvml_library=power_mod.NVML_LIBRARY,
+                                      nvml_index=device.index or 0)
+    except RuntimeError as exc:
+        print(f"ERROR: --stats on {device} needs the card's power rail: "
+              f"{exc}", file=sys.stderr)
+        raise SystemExit(1) from exc
+
+
+def check_nans(phase: str, frame: int, before: KFusionState,
+               after: KFusionState) -> None:
+    """--debug-nans: raise if a float tensor that ``phase`` wrote holds a
+    NaN (inf passes, as with ``jax_debug_nans``)."""
+    for field in dataclasses.fields(after):
+        new = getattr(after, field.name)
+        if new is getattr(before, field.name) or not new.is_floating_point():
+            continue
+        if bool(torch.isnan(new).any()):
+            raise FloatingPointError(
+                f"--debug-nans: {phase} wrote a NaN into {field.name} at "
+                f"frame {frame}")
 
 
 def run(config: Configuration, device: torch.device, fused: bool = False,
-        max_frames: Optional[int] = None, quiet: bool = False) -> dict:
+        max_frames: Optional[int] = None, quiet: bool = False,
+        stats: bool = False, break_on_untracked: bool = False,
+        break_at_frame: Optional[int] = None,
+        debug_nans: bool = False) -> dict:
     """Run the benchmark on ``device``; returns summary statistics with
     per-frame phase times in seconds. ``max_frames`` is the frame index
     to stop at (a resumed run starts at the checkpoint's frame)."""
     if config.mesh:
         raise NotImplementedError(
-            "--mesh is not ported yet (ROADMAP.md, queue 1, item 14)")
+            "--mesh is not ported yet (ROADMAP.md, queue 1, item 4)")
+    power = make_power_monitor(device) if stats else None
     apply_precision_policy()
     reader = make_reader(config)
     if reader is None or not reader.camera_open:
@@ -88,6 +142,8 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
             reader.get_next_frame()
     else:
         state = kf.init_state()
+    if power is not None:
+        power.start()
 
     def fence() -> float:
         synchronize(device)
@@ -112,26 +168,38 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
             xt, yt, zt = kf.get_position(state)
             gates = frame_gates(frame, config.tracking_rate,
                                 config.integration_rate)
+            # (phase, state before, state after) for --debug-nans.
+            written = []
             t1 = fence()
             if fused:
+                before = state
                 state = kf.compute_frame(state, depth, **gates)
                 t5 = fence()
                 t2 = t3 = t4 = t1
+                written.append(("the frame", before, state))
             else:
+                before = state
                 state = kf.preprocessing(state, depth)
                 t2 = fence()
+                written.append(("preprocessing", before, state))
+                before = state
                 if gates["tracking_on"]:
                     state = kf.tracking(state)
                 else:
                     state = kf.skip_tracking(state)
                 t3 = fence()
+                written.append(("tracking", before, state))
+                before = state
                 state = kf.integration(
                     state, integrate_frame=gates["integrate_frame"],
                     force_integrate=gates["force_integrate"])
                 t4 = fence()
+                written.append(("integration", before, state))
+                before = state
                 if gates["raycast_on"]:
                     state = kf.raycasting(state)
                 t5 = fence()
+                written.append(("raycasting", before, state))
             # Rendering (reference: benchmark.cpp:153-156).
             kf.render_depth_image(state)
             kf.render_track_image(state)
@@ -139,6 +207,9 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
                 kf.render_volume_image(state)
             t6 = fence()
             kf.timings.flush()
+            if debug_nans:
+                for phase, before, after in written:
+                    check_nans(phase, frame, before, after)
             tracked = int(bool(state.tracked))
             integrated = int(bool(state.integrated))
             print("%d\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f"
@@ -153,6 +224,22 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
             summary["computation"].append(t5 - t1)
             summary["total"].append(t6 - t0)
             summary["frames"] += 1
+            if power is not None:
+                Stats.sample("frame", frame, StatType.FRAME)
+                Stats.sample("computation", t5 - t1, StatType.TIME)
+                Stats.sample("total", t6 - t0, StatType.TIME)
+                power.sample()
+            # Conditional breakpoints: the headless counterpart of the Qt
+            # GUI's stat breakpoints (reference: qt/SlamBenchQt.cpp:430,
+            # ApplicationWindow.cpp:1024-1060).
+            if break_on_untracked and frame > 3 and not tracked:
+                print(f"BREAK: untracked at frame {frame}", file=sys.stderr)
+                frame += 1
+                break
+            if break_at_frame is not None and frame >= break_at_frame:
+                print(f"BREAK: at frame {frame}", file=sys.stderr)
+                frame += 1
+                break
             frame += 1
             t0 = time.monotonic()
     finally:
@@ -166,6 +253,9 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
 
     if config.dump_volume_file:
         kf.dump_volume(state, config.dump_volume_file)
+    if power is not None:
+        Stats.print_all_data(sys.stderr)
+        power.power_stats.print_all_data(sys.stderr)
     if not quiet and summary["frames"]:
         comp = float(np.mean(summary["computation"]))
         print(f"{summary['frames']} frames on {device}, computation mean "
@@ -182,26 +272,45 @@ def main(argv=None) -> int:
             print(f"ERROR: {flag} is not ported to slambench_tpu_torch yet "
                   "(see ROADMAP.md)", file=sys.stderr)
             return 2
-    fused = "--fused" in argv
-    if fused:
-        argv.remove("--fused")
-    device_name = "cuda"
-    if "--device" in argv:
-        i = argv.index("--device")
-        device_name = argv[i + 1]
+
+    def flag(name: str) -> bool:
+        if name in argv:
+            argv.remove(name)
+            return True
+        return False
+
+    def value(name: str, default: Optional[str] = None) -> Optional[str]:
+        if name not in argv:
+            return default
+        i = argv.index(name)
+        text = argv[i + 1]
         del argv[i:i + 2]
+        return text
+
+    fused = flag("--fused")
+    report = flag("--report-device")
+    stats = flag("--stats")
+    break_untracked = flag("--break-on-untracked")
+    debug_nans = flag("--debug-nans")
+    break_at = value("--break-at-frame")
+    device_name = value("--device", "cuda")
     try:
         device = resolve_device(device_name)
     except RuntimeError as exc:
         print(f"ERROR: {exc}", file=sys.stderr)
         return 1
+    if report:
+        device_report(device, sys.stderr)
     config = parse_args(argv)
     if not config.input_file:
         print("No input found.", file=sys.stderr)
         config.print_arguments()
         return 1
     try:
-        run(config, device, fused=fused)
+        run(config, device, fused=fused, stats=stats,
+            break_on_untracked=break_untracked,
+            break_at_frame=None if break_at is None else int(break_at),
+            debug_nans=debug_nans)
     except NotImplementedError as exc:
         print(f"ERROR: {exc}", file=sys.stderr)
         return 2

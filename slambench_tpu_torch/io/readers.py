@@ -1,9 +1,10 @@
 """Depth-stream readers with the reference's real-time pacing semantics.
 
-A copy of the RAW-file part of ``slambench_tpu/io/readers.py`` (the
-JAX package cannot be imported without JAX): ``DepthReader``,
-``RawDepthReader`` and ``make_reader``. The native mmap loader, the
-ICL-NUIM scene-directory reader and the ONI reader are not ported yet.
+A copy of ``slambench_tpu/io/readers.py`` (the JAX package cannot be
+imported without JAX): ``DepthReader``, ``RawDepthReader``, the ICL-NUIM
+``SceneDepthReader``, the ``.scf`` scene-config parser and
+``make_reader``. The native mmap loader is not ported yet: a ``.raw``
+file always gets the numpy ``RawDepthReader``.
 (reference: kfusion/include/interface.h:28-318, kfusion/src/reader.cpp)
 """
 
@@ -11,12 +12,19 @@ from __future__ import annotations
 
 import math
 import os
+import re
 import time
 from typing import Optional
 
 import numpy as np
 
+from slambench_tpu_torch.config import parse_float4
 from slambench_tpu_torch.io.raw import frame_nbytes, read_raw_header
+
+# ICL-NUIM scene camera (reference: interface.h:89-97). The negative fy
+# is the planarization's; the reader reports the positive one.
+SCENE_K = (481.20, -480.00, 319.50, 239.50)
+SCENE_SIZE = (640, 480)
 
 
 class DepthReader:
@@ -90,16 +98,89 @@ class RawDepthReader(DepthReader):
         return self._size
 
 
+class SceneDepthReader(DepthReader):
+    """ICL-NUIM scene-directory reader: ASCII ``.depth`` files with
+    euclidean ray lengths, converted to planar z
+    (reference: interface.h:99-197)."""
+
+    def __init__(self, dirname: str, fps: int = 0,
+                 blocking_read: bool = False):
+        super().__init__(fps, blocking_read)
+        self._dir = dirname
+        self._size = SCENE_SIZE
+        self.camera_open = os.path.isdir(dirname)
+        # Planarization factor (reference: interface.h:182-193).
+        w, h = SCENE_SIZE
+        fx, fy, cx, cy = SCENE_K
+        u = np.arange(w, dtype=np.float32)[None, :]
+        v = np.arange(h, dtype=np.float32)[:, None]
+        ux = (u - cx) / fx
+        vy = (v - cy) / fy
+        self._planar = 1.0 / np.sqrt(ux * ux + vy * vy + 1.0)
+
+    def read_next_depth_frame(self) -> Optional[np.ndarray]:
+        self.get_next_frame()
+        path = os.path.join(self._dir, "scene_00_%04d.depth" % self._frame)
+        if not os.path.exists(path):
+            return None
+        w, h = self._size
+        with open(path) as f:
+            vals = np.array(f.read().split(), dtype=np.float32)
+        depth = vals[: w * h].reshape(h, w)
+        depth = depth * self._planar
+        # Truncates and does not clip, as the JAX reader does.
+        return (depth * 1000.0).astype(np.uint16)
+
+    def get_k(self):
+        # Positive-fy convention of the reference reader
+        # (reference: interface.h:134-137).
+        return (481.20, 480.00, 319.50, 239.50)
+
+    def get_input_size(self):
+        return self._size
+
+
+def _parse_scf(path: str) -> dict:
+    """Parse a ``.scf`` scene-config file: ``key = value`` lines with
+    relative paths resolved against the file's directory
+    (reference: kfusion/src/reader.cpp:38-170)."""
+    base = os.path.dirname(os.path.abspath(path))
+    out = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            m = re.match(r"([A-Za-z_]+)\s*=\s*(.*)", line)
+            if m:
+                key, val = m.group(1), m.group(2).strip().strip('"')
+                if key in ("input_file", "input"):
+                    if not os.path.isabs(val):
+                        val = os.path.join(base, val)
+                out[key] = val
+    return out
+
+
 def make_reader(config) -> Optional[DepthReader]:
-    """Reader for ``config.input_file``: a ``.raw`` file gives a
-    RawDepthReader, a missing path gives None."""
+    """Reader factory with extension dispatch
+    (reference: kfusion/src/reader.cpp:172-207 ``createReader``):
+    ``.raw`` files -> RawDepthReader, directories -> SceneDepthReader,
+    ``.scf`` -> parse (its ``camera`` overrides ``config.camera``) and
+    recurse; a missing path gives None."""
     path = config.input_file if hasattr(config, "input_file") else str(config)
     fps = getattr(config, "fps", 0)
     blocking = getattr(config, "blocking_read", False)
-    if path.endswith(".scf") or os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: scene-directory and .scf inputs are not ported yet; "
-            "convert to a .raw file")
+    if path.endswith(".scf"):
+        scf = _parse_scf(path)
+        inner = scf.get("input_file") or scf.get("input")
+        if inner is None:
+            return None
+        if "camera" in scf and hasattr(config, "camera"):
+            config.camera = parse_float4(scf["camera"])
+            config.camera_overrided = True
+        path = inner
+    if os.path.isdir(path):
+        return SceneDepthReader(path, fps, blocking)
     if os.path.isfile(path):
         return RawDepthReader(path, fps, blocking)
     return None

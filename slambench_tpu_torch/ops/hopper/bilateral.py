@@ -14,7 +14,10 @@ bilateral_filter_pallas``; the kernels are the two entry points of
   ``bilateral_filter``). ``KFusion.preprocessing`` calls it once a frame.
 
 On CPU tensors each wrapper runs its twin; on CUDA tensors it launches
-its kernel or raises.
+its kernel or raises. ``mm2m_bilateral_cuda``'s ``span`` (a
+``utils/timers.py`` span, or None) has its two CUDA events recorded by
+the C entry point right around the launch; on the CPU it is entered
+around the twin.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from slambench_tpu_torch import params
 from slambench_tpu_torch.ops.hopper import build
 from slambench_tpu_torch.ops.preprocess import bilateral_filter as plain
 from slambench_tpu_torch.ops.preprocess import mm2meters
+from slambench_tpu_torch.utils.timers import NULL_SPAN
 
 # Kernel launches since the last reset (chip_smoke.py reads these).
 launches = 0          # bilateral_filter_cuda
@@ -88,8 +92,8 @@ def mm2m_bilateral_plain(depth_mm: torch.Tensor, ratio: int, gaussian,
 
 def mm2m_bilateral_cuda(depth_mm: torch.Tensor, ratio: int, gaussian,
                         e_d: float = params.E_DELTA,
-                        r: int = params.RADIUS
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        r: int = params.RADIUS,
+                        span=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(float_depth, scaled_depth0) of an int32 millimetre frame read at
     stride ``ratio``: metres by IEEE division, and their bilateral
     filter, each ``ceil(in / ratio)`` per axis."""
@@ -103,8 +107,10 @@ def mm2m_bilateral_cuda(depth_mm: torch.Tensor, ratio: int, gaussian,
     if depth_mm.numel() == 0:
         raise ValueError("the frame is empty")
     _check_device(depth_mm)
+    span = NULL_SPAN if span is None else span
     if depth_mm.device.type == "cpu":
-        return mm2m_bilateral_plain(depth_mm, ratio, lut, e_d, r)
+        with span:
+            return mm2m_bilateral_plain(depth_mm, ratio, lut, e_d, r)
     Hin, Win = depth_mm.shape
     shape = (-(-Hin // ratio), -(-Win // ratio))
     fd = torch.empty(shape, dtype=torch.float32, device=depth_mm.device)
@@ -112,7 +118,8 @@ def mm2m_bilateral_cuda(depth_mm: torch.Tensor, ratio: int, gaussian,
     status = build.load().slb_mm2m_bilateral_f32(
         depth_mm.data_ptr(), fd.data_ptr(), sd.data_ptr(), Hin, Win,
         int(ratio), lut.ctypes.data_as(ctypes.c_void_p), _e2(e_d),
-        torch.cuda.current_stream(depth_mm.device).cuda_stream)
+        torch.cuda.current_stream(depth_mm.device).cuda_stream,
+        *span.device_events())
     build.check(status, "mm2meters + bilateral kernel")
     fused_launches += 1
     return fd, sd

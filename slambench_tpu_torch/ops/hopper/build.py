@@ -66,13 +66,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.slb_bilateral_f32.argtypes = [vp, vp, ci, ci, vp, cf, vp]
     lib.slb_bilateral_f32.restype = ci
     lib.slb_mm2m_bilateral_f32.argtypes = [vp, vp, vp, ci, ci, ci, vp, cf,
-                                           vp]
+                                           vp, vp, vp]
     lib.slb_mm2m_bilateral_f32.restype = ci
     lib.slb_reduce_track_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                          vp]
     lib.slb_reduce_track_f32.restype = ci
     lib.slb_track_reduce_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                         vp, ci, ci, ci, cf, cf, ci, ci, vp]
+                                         vp, ci, ci, ci, cf, cf, ci, ci, vp,
+                                         vp, vp]
     lib.slb_track_reduce_f32.restype = ci
     lib.slb_gather_flat.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp]
     lib.slb_gather_flat.restype = ci

@@ -201,14 +201,28 @@ extern "C" int slb_bilateral_f32(const float* in, float* out, int H, int W,
 
 // mm: int32 [Hin, Win] millimetres; metres, out: f32 [H, W] with
 // H = ceil(Hin / ratio), W = ceil(Win / ratio).
+// ev_start / ev_end: CUDA events (or null) recorded on the stream right
+// before and after the launch, so that a KERNEL_TIMINGS span holds the
+// kernel and not the caller's host work.
 extern "C" int slb_mm2m_bilateral_f32(const int* mm, float* metres,
                                       float* out, int Hin, int Win,
                                       int ratio, const float* lut5, float e2,
-                                      void* stream) {
+                                      void* stream, void* ev_start,
+                                      void* ev_end) {
   const int H = (Hin + ratio - 1) / ratio;
   const int W = (Win + ratio - 1) / ratio;
-  mm2m_bilateral_kernel<<<grid_for(H, W), THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      mm, metres, out, Win, ratio, H, W, make_taps(lut5), range_scale(e2));
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Taps taps = make_taps(lut5);
+  const float c2 = range_scale(e2);
+  if (ev_start) {
+    const cudaError_t err =
+        cudaEventRecord(static_cast<cudaEvent_t>(ev_start), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  mm2m_bilateral_kernel<<<grid_for(H, W), THREADS, 0, s>>>(
+      mm, metres, out, Win, ratio, H, W, taps, c2);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !ev_end) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaEventRecord(static_cast<cudaEvent_t>(ev_end), s));
 }

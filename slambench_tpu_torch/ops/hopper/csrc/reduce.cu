@@ -314,19 +314,30 @@ extern "C" int slb_reduce_track_f32(const int* result, const float* error,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ev_start / ev_end: CUDA events (or null) recorded on the stream right
+// before and after the launch, so that a KERNEL_TIMINGS span holds the
+// kernel and not the caller's host work.
 extern "C" int slb_track_reduce_f32(
     const float* in_vertex, const float* in_normal, const float* ref_vertex,
     const float* ref_normal, const float* pose, const float* view,
     int* result, float* partials, unsigned int* ticket, float* out, int n,
     int H, int W, float dist_threshold, float normal_threshold, int nblocks,
-    int max_blocks, void* stream) {
+    int max_blocks, void* stream, void* ev_start, void* ev_end) {
   if (n < 0 || H < 1 || W < 1 || nblocks < 1 || nblocks > max_blocks)
     return static_cast<int>(cudaErrorInvalidValue);
   TrackPixel src{in_vertex, in_normal, ref_vertex, ref_normal, result,
                  nullptr, nullptr, n, H, W, dist_threshold,
                  normal_threshold};
-  track_reduce_kernel<<<nblocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      src, pose, view, partials, ticket, out);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ev_start) {
+    const cudaError_t err =
+        cudaEventRecord(static_cast<cudaEvent_t>(ev_start), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  track_reduce_kernel<<<nblocks, kThreads, 0, s>>>(src, pose, view,
+                                                   partials, ticket, out);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !ev_end) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaEventRecord(static_cast<cudaEvent_t>(ev_end), s));
 }

@@ -13,7 +13,10 @@ each, deterministic):
   ICP loop of ``pipeline.py`` calls it.
 
 On CPU tensors each wrapper runs its twin; on CUDA tensors it launches
-its kernel or raises.
+its kernel or raises. ``track_reduce_cuda``'s ``span`` (a
+``utils/timers.py`` span, or None) has its two CUDA events recorded by
+the C entry point right around the launch; on the CPU it is entered
+around the twin.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from slambench_tpu_torch import params
 from slambench_tpu_torch.ops.hopper import build
 from slambench_tpu_torch.ops.track import TrackData, track
 from slambench_tpu_torch.ops.track import reduce_track as plain
+from slambench_tpu_torch.utils.timers import NULL_SPAN
 
 THREADS = 256
 # The grid gives one pixel per thread up to 4 blocks per SM of an H100
@@ -118,7 +122,7 @@ def track_reduce_cuda(in_vertex: torch.Tensor,
                       view: torch.Tensor,
                       dist_threshold: float = params.DIST_THRESHOLD,
                       normal_threshold: float = params.NORMAL_THRESHOLD,
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      span=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ICP iteration's data term, ``ops/track.py:track_and_reduce``
     without the TrackData: returns (packed 32 floats, result codes
     [h, w] int32). ``in_*`` are [3, h, w] level maps, ``ref_*`` [3, H, W]
@@ -138,8 +142,11 @@ def track_reduce_cuda(in_vertex: torch.Tensor,
             "shapes must be [3,h,w] x2, [3,H,W] x2, [4,4] x2; got "
             f"{[tuple(t.shape) for t in tensors]}")
     device = _device_of(tensors)
+    span = NULL_SPAN if span is None else span
     if device.type == "cpu":
-        return track_reduce_plain(*tensors, dist_threshold, normal_threshold)
+        with span:
+            return track_reduce_plain(*tensors, dist_threshold,
+                                      normal_threshold)
     _check_contiguous(tensors, "track_reduce inputs")
     _, h, w = in_vertex.shape
     _, H, W = ref_vertex.shape
@@ -153,7 +160,7 @@ def track_reduce_cuda(in_vertex: torch.Tensor,
         ref_normal.data_ptr(), pose.data_ptr(), view.data_ptr(),
         result.data_ptr(), partials.data_ptr(), ticket.data_ptr(),
         out.data_ptr(), n, H, W, dist_threshold, normal_threshold,
-        grid_blocks(n), MAX_BLOCKS, stream)
+        grid_blocks(n), MAX_BLOCKS, stream, *span.device_events())
     build.check(status, "track_reduce kernel")
     fused_launches += 1
     return out, result

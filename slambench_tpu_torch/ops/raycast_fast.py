@@ -4,10 +4,11 @@ marching and trilinear rescan/false-position refinement (port of
 becomes the hand kernel K4 in a later change).
 
 Ported: ``make_min_mip``, ``make_skip_mip``, the single-phase
-``mip_march``, ``rescan_refine`` and ``raycast_fast_maps``. Left out,
-because they exist for the TPU's lockstep march: ``march_two_phase``
-(bit-identical to the single-phase march by design), the concatenated
-volume++skip gather table, and ``warm_start_bound`` (off by default).
+``mip_march``, ``rescan_refine``, ``raycast_fast_maps`` with its
+``t_init`` warm start, and ``warm_start_bound``. Left out, because they
+exist for the TPU's lockstep march: ``march_two_phase`` (bit-identical
+to the single-phase march by design) and the concatenated volume++skip
+gather table.
 
 The march budget is the JAX default path's: ``MARCH_PHASE1`` substeps
 plus ``max_iters`` rounded up to ``MARCH_UNROLL``, with the "any ray
@@ -16,7 +17,7 @@ live" test every ``MARCH_UNROLL`` substeps.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -160,14 +161,21 @@ def rescan_refine(tri_t, tri_batch, out: dict, step: float) -> torch.Tensor:
 def raycast_fast(tsdf: torch.Tensor, mip: torch.Tensor, dim: Dim3,
                  view: torch.Tensor, image_size: Tuple[int, int],
                  near_plane: float, far_plane: float, step: float,
-                 large_step: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Hit positions [3, H, W] (0 where no hit) and hit distances."""
+                 large_step: float, t_init: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hit positions [3, H, W] (0 where no hit) and hit distances.
+
+    ``t_init`` (optional, [H, W]) is a per-ray lower bound on the hit
+    distance, the temporal warm start (``warm_start_bound``): marching
+    starts at ``max(tnear, t_init)``, capped at ``tfar``."""
     m = MIP_BLOCK
     sz, sy, sx = tsdf.shape
     dev = tsdf.device
     origin, direction = camera_rays(view, image_size)
     o = origin.reshape(3, 1, 1)
     tnear, tfar = ray_box_clip(origin, direction, dim, near_plane, far_plane)
+    if t_init is not None:
+        tnear = torch.minimum(torch.maximum(tnear, t_init), tfar)
 
     voxel = constant((dim[0] / sx, dim[1] / sy, dim[2] / sz), torch.float32,
                      dev).reshape(3, 1, 1)
@@ -224,16 +232,50 @@ def raycast_fast(tsdf: torch.Tensor, mip: torch.Tensor, dim: Dim3,
     return hit_pos, t_hit
 
 
+def warm_start_bound(prev_t_hit: torch.Tensor, pose_delta: torch.Tensor,
+                     far_plane: float = params.FAR_PLANE,
+                     large_step: float = 0.075,
+                     pool: int = 8) -> torch.Tensor:
+    """Per-ray hit-distance lower bound from the previous frame.
+
+    ``prev_t_hit`` is the last raycast's t map (0 = miss); ``pose_delta``
+    = ``inv(prev_pose) @ pose``. Misses and pixels near misses get no
+    bound (0). The bound is the ``pool`` x ``pool`` block min (covering
+    pixel reassociation under small rotations) minus a rigid-motion
+    margin ``|t| + |angle| * far + 2*large_step``, conservative for any
+    static scene. Both sides of the map must be multiples of ``pool``."""
+    H, W = prev_t_hit.shape
+    if H % pool or W % pool:
+        raise ValueError(f"warm_start_bound: the t map is {H}x{W}; both "
+                         f"sides must be multiples of the {pool}x{pool} "
+                         "pool")
+    trans = torch.linalg.vector_norm(pose_delta[:3, 3])
+    # Rotation angle bound from the trace.
+    cos_a = torch.clamp((torch.trace(pose_delta[:3, :3]) - 1.0) * 0.5,
+                        -1.0, 1.0)
+    angle = torch.arccos(cos_a)
+    margin = trans + angle * far_plane + 2.0 * large_step
+
+    guarded = torch.where(prev_t_hit > 0, prev_t_hit,
+                          torch.zeros_like(prev_t_hit))
+    pooled = guarded.reshape(H // pool, pool, W // pool, pool).amin((1, 3))
+    up = pooled.repeat_interleave(pool, 0).repeat_interleave(pool, 1)
+    return torch.clamp(up - margin, min=0.0)
+
+
 def raycast_fast_maps(tsdf: torch.Tensor, mip: torch.Tensor, dim: Dim3,
                       view: torch.Tensor, image_size: Tuple[int, int],
                       near_plane: float = params.NEAR_PLANE,
                       far_plane: float = params.FAR_PLANE,
-                      step: float = 0.0078125, large_step: float = 0.075
+                      step: float = 0.0078125, large_step: float = 0.075,
+                      t_init: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Vertex + normal reference maps and the hit-distance map
-    (reference: cpp/kernels.cpp:726-757)."""
+    (reference: cpp/kernels.cpp:726-757); ``t_init`` as in
+    ``raycast_fast``."""
     hit_pos, t_hit = raycast_fast(tsdf, mip, dim, view, image_size,
-                                  near_plane, far_plane, step, large_step)
+                                  near_plane, far_plane, step, large_step,
+                                  t_init)
     g = grad(tsdf, dim, hit_pos)
     glen = length3(g)
     normal = normalize3(g)

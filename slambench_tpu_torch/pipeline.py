@@ -15,7 +15,10 @@ phases of the reference's ``Kfusion`` class on one ``torch.device``:
 
 The backend names ``fast``, ``pallas`` and ``auto`` run the min-mip
 march and ``jnp`` the oracle march; every name runs the hand kernels K1F
-and K2F on the card. The render methods give the reference's three
+and K2F on the card. With ``SLAMBENCH_WARM_START=1`` in the environment
+when the pipeline is made, the min-mip march starts each ray at the
+previous raycast's warm-start bound (``warm_start_bound``; off by
+default, as in JAX). The render methods give the reference's three
 diagnostic images.
 
 The ICP loop runs each level's fixed iteration budget with no host read:
@@ -25,15 +28,19 @@ the step that reports convergence, then stops). ``motion_model="cv"``
 starts it from a damped constant-velocity prediction (``cv_predict``),
 computed on the device.
 
-With KERNEL_TIMINGS set, ``KFusion.timings`` records a span around each
-K1F and K2F launch, the pose solve, integrate, the min-mip, the raycast
-and each render (``utils/timers.py``).
+With KERNEL_TIMINGS set, ``KFusion.timings`` records a span under the
+reference's kernel names (``utils/timers.py``): around each K1F and K2F
+launch (its events recorded by the kernel's C entry point, so the span
+holds the launch and not the wrapper's host work), each pyramid step,
+each level's vertex and normal maps, the pose solve, checkPose,
+integrate, the min-mip, the raycast and each render.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+import os
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,7 +57,9 @@ from slambench_tpu_torch.ops.preprocess import (
     half_sample_robust, make_gaussian,
 )
 from slambench_tpu_torch.ops.raycast import raycast_maps
-from slambench_tpu_torch.ops.raycast_fast import make_min_mip, raycast_fast_maps
+from slambench_tpu_torch.ops.raycast_fast import (
+    make_min_mip, raycast_fast_maps, warm_start_bound,
+)
 from slambench_tpu_torch.ops.render import (
     render_depth, render_track, render_volume,
 )
@@ -139,6 +148,10 @@ class KFusion:
         self.icp_threshold = float(icp_threshold)
         self.backend = backend
         self.motion_model = motion_model
+        # Temporal warm start of the min-mip march (JAX pipeline.py:
+        # 384-397): off by default; the oracle march keeps none.
+        self.warm_start = (backend != "jnp" and os.environ.get(
+            "SLAMBENCH_WARM_START", "0") == "1")
         # Fine ray-march step = min(dim) / max(res) (reference: kernels.h:116).
         self.step = min(self.volume_dimensions) / max(self.volume_resolution)
         self.gaussian = make_gaussian()
@@ -186,27 +199,30 @@ class KFusion:
         """mm->m conversion + bilateral filter, one kernel launch
         (reference: cpp/kernels.cpp:915-922)."""
         ratio = input_depth.shape[1] // self.W
-        with self.timings.span("mm2m_bilateral", self.H * self.W):
-            fd, sd0 = mm2m_bilateral_cuda(input_depth, ratio, self.gaussian,
-                                          params.E_DELTA, params.RADIUS)
+        fd, sd0 = mm2m_bilateral_cuda(
+            input_depth, ratio, self.gaussian, params.E_DELTA, params.RADIUS,
+            span=self.timings.span("mm2m_bilateral", self.H * self.W))
         return dataclasses.replace(state, float_depth=fd, scaled_depth0=sd0)
-
-    def _build_pyramid(self, sd0: torch.Tensor) -> List[torch.Tensor]:
-        pyr = [sd0]
-        for _ in range(1, self._levels):
-            pyr.append(half_sample_robust(pyr[-1], params.E_DELTA * 3, 1))
-        return pyr
 
     def tracking(self, state: KFusionState) -> KFusionState:
         """Pyramid + per-level vertex/normal maps + coarse-to-fine ICP +
         checkPose (reference: cpp/kernels.cpp:924-971)."""
-        pyr = self._build_pyramid(state.scaled_depth0)
+        span = self.timings.span
+        npix = self.H * self.W
+        pyr = [state.scaled_depth0]
+        for i in range(1, self._levels):
+            with span("halfSampleRobustImage", npix >> (2 * i)):
+                pyr.append(half_sample_robust(pyr[-1], params.E_DELTA * 3,
+                                              1))
         verts, norms = [], []
         for i in range(self._levels):
             inv_k = get_inverse_camera_matrix(self._k / float(1 << i))
-            v = depth2vertex(pyr[i], inv_k)
+            with span("depth2vertex", npix >> (2 * i)):
+                v = depth2vertex(pyr[i], inv_k)
+            with span("vertex2normal", npix >> (2 * i)):
+                n = vertex2normal(v)
             verts.append(v)
-            norms.append(vertex2normal(v))
+            norms.append(n)
 
         old_pose = state.pose
         view = mat4mul(get_camera_matrix(self._k),
@@ -217,7 +233,6 @@ class KFusion:
             pose = state.pose
         reduction = state.reduction
         track_result = state.track_result
-        span = self.timings.span
 
         for level in reversed(range(self._levels)):
             h, w = self.H >> level, self.W >> level
@@ -225,10 +240,10 @@ class KFusion:
                                        device=self.device)
             done = torch.zeros((), dtype=torch.bool, device=self.device)
             for _ in range(self.iterations[level]):
-                with span("track_reduce", h * w):
-                    red, result = track_reduce_cuda(
-                        verts[level], norms[level], state.ref_vertex,
-                        state.ref_normal, pose, view)
+                red, result = track_reduce_cuda(
+                    verts[level], norms[level], state.ref_vertex,
+                    state.ref_normal, pose, view,
+                    span=span("track_reduce", h * w))
                 with span("updatePose", 1):
                     new_pose, conv = update_pose(pose, red,
                                                  self.icp_threshold)
@@ -239,8 +254,9 @@ class KFusion:
             if level == 0:
                 track_result = level_result
 
-        pose, tracked = check_pose(pose, old_pose, reduction,
-                                   (self.H, self.W))
+        with span("checkPose", 1):
+            pose, tracked = check_pose(pose, old_pose, reduction,
+                                       (self.H, self.W))
         return dataclasses.replace(
             state, pose=pose, old_pose=old_pose, reduction=reduction,
             track_result=track_result, tracked=tracked)
@@ -281,7 +297,9 @@ class KFusion:
     def raycasting(self, state: KFusionState) -> KFusionState:
         """Surface prediction from the current pose
         (reference: cpp/kernels.cpp:973-986). The oracle march keeps no
-        hit distances: ``prev_t_hit`` holds zeros, as in JAX."""
+        hit distances: ``prev_t_hit`` holds zeros, as in JAX. With the
+        warm start on, the min-mip march starts at the bound that the
+        previous hit distances and the motion since that raycast give."""
         view = mat4mul(state.pose, get_inverse_camera_matrix(self._k))
         with self.timings.span("raycast", self.H * self.W):
             if self.backend == "jnp":
@@ -292,10 +310,17 @@ class KFusion:
                 t_hit = torch.zeros((self.H, self.W), dtype=torch.float32,
                                     device=self.device)
             else:
+                t_init = None
+                if self.warm_start:
+                    delta = mat4mul(rigid_inverse(state.raycast_pose),
+                                    state.pose)
+                    t_init = warm_start_bound(
+                        state.prev_t_hit, delta, params.FAR_PLANE,
+                        0.75 * self.mu)
                 vertex, normal, t_hit = raycast_fast_maps(
                     state.tsdf, state.mip, self.volume_dimensions, view,
                     (self.H, self.W), params.NEAR_PLANE, params.FAR_PLANE,
-                    self.step, 0.75 * self.mu)
+                    self.step, 0.75 * self.mu, t_init=t_init)
         return dataclasses.replace(
             state, raycast_pose=state.pose, ref_vertex=vertex,
             ref_normal=normal, prev_t_hit=t_hit)

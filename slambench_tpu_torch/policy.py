@@ -8,6 +8,10 @@ matmuls and convolutions: TF32 off everywhere.
 
 from __future__ import annotations
 
+import os
+import platform
+import sys
+
 import torch
 
 
@@ -29,6 +33,28 @@ def resolve_device(name: str) -> torch.device:
             f"device {name!r} requested but torch.cuda.is_available() is "
             "False; pass --device cpu to run the plain-torch path on the CPU")
     return device
+
+
+def device_report(device: torch.device, out=sys.stderr) -> None:
+    """Print the platform and device table (the JAX package's
+    ``utils/backend.py:device_report``; the reference reports its OpenCL
+    platform and device, common_opencl.cpp:58-66)."""
+    print(f"platform: {device.type} (torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda or 'none'})", file=out)
+    if device.type != "cuda":
+        print(f"  device 0: cpu {platform.machine()} "
+              f"{platform.processor() or ''}".rstrip()
+              + f", {os.cpu_count()} cores, {torch.get_num_threads()} "
+              "torch threads", file=out)
+        return
+    chosen = device.index or 0
+    for i in range(torch.cuda.device_count()):
+        p = torch.cuda.get_device_properties(i)
+        print(f"  device {i}: cuda:{i} {p.name}, "
+              f"{p.multi_processor_count} SMs, "
+              f"{p.total_memory / 2 ** 30:.1f} GiB, "
+              f"sm_{p.major}{p.minor}"
+              + (" (selected)" if i == chosen else ""), file=out)
 
 
 def synchronize(device: torch.device) -> None:

@@ -124,7 +124,7 @@ def build_libs(sources: dict) -> dict:
             lib.slb_k1_split.restype = ci
         else:
             lib.slb_mm2m_bilateral_f32.argtypes = [vp, vp, vp, ci, ci, ci,
-                                                   vp, cf, vp]
+                                                   vp, cf, vp, vp, vp]
             lib.slb_mm2m_bilateral_f32.restype = ci
     return libs
 
@@ -170,7 +170,7 @@ def run(device: torch.device, reps: int = 200) -> dict:
         metres, out = torch.empty_like(fd), torch.empty_like(fd)
         build.check(libs[name].slb_mm2m_bilateral_f32(
             mm.data_ptr(), metres.data_ptr(), out.data_ptr(), *mm.shape, 2,
-            lut_ptr, e2, stream), f"K1F variant {name}")
+            lut_ptr, e2, stream, None, None), f"K1F variant {name}")
         return metres, out
 
     want = bilateral.plain(fd, lut)

@@ -13,15 +13,18 @@ synchronously and a span reads the host clock instead.
 An event pair measures the stream's time between the two records. Where
 the host enqueues slower than the card runs (the ICP solve's many small
 ops), that time includes the card waiting for the host: it is the time
-the dispatch took on the stream, not the sum of its kernels.
+the dispatch took on the stream, not the sum of its kernels. The hand
+kernels' wrappers take a span and have their C entry point record its
+two events right around the launch (``device_events``), so those spans
+hold the kernel and the launch's own latency, not the wrapper's host
+work. Event pairs are kept in a pool and reused after each flush.
 
-With the variable unset a span is a shared no-op context: nothing is
-recorded and nothing is printed.
+With the variable unset a span is a shared no-op context
+(``NULL_SPAN``): nothing is recorded and nothing is printed.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 import sys
 import time
@@ -29,7 +32,23 @@ from typing import List, Tuple
 
 import torch
 
-_NULL = contextlib.nullcontext()
+
+class _NullSpan:
+    """The span when timing is off: a no-op context, and no events for a
+    kernel's launch."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def device_events(self) -> Tuple[int, int]:
+        return 0, 0
+
+
+NULL_SPAN = _NullSpan()
 
 
 class KernelTimings:
@@ -42,18 +61,23 @@ class KernelTimings:
         self.enabled = bool(os.environ.get("KERNEL_TIMINGS"))
         self._cuda = torch.device(device).type == "cuda"
         self._spans: List[Tuple[str, int, object, object]] = []
+        self._free: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
 
     def span(self, name: str, size: int = 0):
         if not self.enabled:
-            return _NULL
+            return NULL_SPAN
         return _Span(self, name, size)
 
-    def _now(self):
-        if self._cuda:
-            ev = torch.cuda.Event(enable_timing=True)
+    def _event_pair(self) -> Tuple[torch.cuda.Event, torch.cuda.Event]:
+        """Two timing events from the pool; a new pair is recorded once
+        so that its CUDA events exist (torch creates them lazily)."""
+        if self._free:
+            return self._free.pop()
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        for ev in pair:
             ev.record()
-            return ev
-        return time.perf_counter_ns()
+        return pair
 
     def flush(self, stream=None) -> List[Tuple[str, int, int]]:
         """Print and return ``(name, ns, size)`` of every span recorded
@@ -61,10 +85,12 @@ class KernelTimings:
         it reads the events, waiting for the last one."""
         out = []
         if self._spans and self._cuda:
-            self._spans[-1][3].synchronize()
+            for _, _, _, end in self._spans:
+                end.synchronize()
         for name, size, start, end in self._spans:
             if self._cuda:
                 ns = int(round(start.elapsed_time(end) * 1e6))
+                self._free.append((start, end))
             else:
                 ns = end - start
             out.append((name, ns, size))
@@ -76,16 +102,31 @@ class KernelTimings:
 
 
 class _Span:
-    __slots__ = ("owner", "name", "size", "start")
+    __slots__ = ("owner", "name", "size", "start", "events")
 
     def __init__(self, owner: KernelTimings, name: str, size: int):
         self.owner, self.name, self.size = owner, name, size
 
     def __enter__(self):
-        self.start = self.owner._now()
+        if self.owner._cuda:
+            self.events = self.owner._event_pair()
+            self.events[0].record()
+        else:
+            self.start = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        self.owner._spans.append((self.name, self.size, self.start,
-                                  self.owner._now()))
+        if self.owner._cuda:
+            start, end = self.events
+            end.record()
+        else:
+            start, end = self.start, time.perf_counter_ns()
+        self.owner._spans.append((self.name, self.size, start, end))
         return False
+
+    def device_events(self) -> Tuple[int, int]:
+        """The raw handles of an event pair for a kernel's C entry point
+        to record around its launch; the span is logged at once."""
+        start, end = self.owner._event_pair()
+        self.owner._spans.append((self.name, self.size, start, end))
+        return start.cuda_event, end.cuda_event

@@ -11,6 +11,8 @@ machine, where JAX is absent, with
 
 Without a card every test skips."""
 
+import io
+
 import numpy as np
 import pytest
 
@@ -288,6 +290,61 @@ def test_cli_on_card(dev, tmp_path):
     log = parse_benchmark_log(log_path)
     assert log["tracked"][4:].all()
     assert compute_ate(log, load_gt_trajectory(man["gt"]))["ATE"].mean() < 0.06
+
+
+def test_spans_wrap_only_the_launch(frame_mm, frame, dev, monkeypatch):
+    """A KERNEL_TIMINGS span passed to K1F and K2F records one event pair
+    around the launch; the outputs equal an untimed call's."""
+    from slambench_tpu_torch.utils.timers import KernelTimings
+    monkeypatch.setenv("KERNEL_TIMINGS", "1")
+    t = KernelTimings(dev)
+    g = make_gaussian()
+    fd, sd = bilateral.mm2m_bilateral_cuda(frame_mm, 2, g,
+                                           span=t.span("mm2m_bilateral"))
+    args = _level_maps(frame, dev, 0)
+    red, res = reduce.track_reduce_cuda(*args, span=t.span("track_reduce"))
+    torch.cuda.synchronize()
+    fd2, sd2 = bilateral.mm2m_bilateral_cuda(frame_mm, 2, g)
+    red2, res2 = reduce.track_reduce_cuda(*args)
+    assert torch.equal(fd, fd2) and torch.equal(sd, sd2)
+    assert torch.equal(red, red2) and torch.equal(res, res2)
+    spans = t.flush(io.StringIO())
+    assert [name for name, _, _ in spans] == ["mm2m_bilateral",
+                                              "track_reduce"]
+    assert all(ns > 0 for _, ns, _ in spans)
+
+
+def test_warm_start_on_card_equals_cpu(dev):
+    """The warm-start bound and the warm-started march on the card
+    against the same calls on the CPU: the bound within 1e-6 m, the
+    hits within test_raycast_fast.py's gates."""
+    from slambench_tpu_torch.ops.raycast_fast import (
+        raycast_fast_maps, warm_start_bound,
+    )
+    c = np.linspace(2.0 / 128, 2.0 - 2.0 / 128, 64)
+    Z, Y, X = np.meshgrid(c, c, c, indexing="ij")
+    d = np.sqrt((X - 1.0) ** 2 + (Y - 1.0) ** 2 + (Z - 1.4) ** 2) - 0.3
+    tsdf = torch.from_numpy(np.trunc(np.clip(d / 0.2, -1, 1) * 32766)
+                            .astype(np.int16))
+    view = G.mat4mul(G.translation_pose([1.0, 1.0, 0.2], torch.device("cpu")),
+                     G.get_inverse_camera_matrix(
+                         torch.tensor([60.0, 60.0, 16.0, 12.0])))
+    args = ((2.0,) * 3, view, (24, 32), 0.1, 4.0, 2.0 / 64, 0.15)
+    out = {}
+    for where in (torch.device("cpu"), dev):
+        vol = tsdf.to(where)
+        mip = make_min_mip(vol)
+        a = (args[0], args[1].to(where)) + args[2:]
+        _, _, t0 = raycast_fast_maps(vol, mip, *a)
+        bound = warm_start_bound(t0, torch.eye(4, device=where), 4.0, 0.15)
+        v, n, t = raycast_fast_maps(vol, mip, *a, t_init=bound)
+        out[where.type] = [x.cpu() for x in (bound, v, n, t)]
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0,
+                               atol=1e-6)
+    hc, hg = out["cpu"][2][0] != -2, out["cuda"][2][0] != -2
+    assert int((hc ^ hg).sum()) <= 2 and int((hc & hg).sum()) > 50
+    dv = (out["cuda"][1] - out["cpu"][1]).abs().amax(0)[hc & hg]
+    assert float(dv.max()) < 2 * 2.0 / 64
 
 
 def _grey_levels_agree(name, got, want):

@@ -194,6 +194,7 @@ def test_backend_names_and_unported_paths(dataset):
     from slambench_tpu_torch.frontend.benchmark import (
         NOT_PORTED_FLAGS, main,
     )
+    assert set(NOT_PORTED_FLAGS) == {"--scan-chunk", "--keyframes", "--ba"}
     for flag in NOT_PORTED_FLAGS:
         assert main([flag, "4", "-i", "x.raw"]) == 2, flag
     with pytest.raises(NotImplementedError, match="ROADMAP"):
