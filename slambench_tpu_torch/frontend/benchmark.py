@@ -36,6 +36,16 @@ Observation flags, as in the JAX CLI:
     runs only under the flag;
   * ``--report-device`` prints the platform and device table to stderr.
 
+``--keyframes`` runs the keyframe layer (``models/keyframes.py``): each
+frame goes through ``PoseGraphKFusion.process_frame`` (keyframe
+promotion, loop-closure ICP on K2F, graph optimization between frames),
+timed as one window like ``--fused``, which it takes precedence over. At
+the end the raw and the corrected trajectories are written as
+``<log>.kf_raw.tum`` and ``<log>.kf_corrected.tum``. ``--ba`` (implies
+``--keyframes``) optimizes by sparse Schur bundle adjustment over the
+keyframe snapshots instead of the pose graph alone. A resumed run starts
+with an empty graph; a checkpoint does not hold it.
+
 The device is ``cuda`` unless ``--device cpu`` is given; a missing card
 is an error, never a quiet fallback to the CPU.
 
@@ -45,7 +55,7 @@ a ``.scf`` scene-config file (``io/readers.py``).
 Usage:  python -m slambench_tpu_torch.frontend.benchmark -i scene.raw
         -o out.log [reference flags] [--fused] [--device cuda|cpu]
         [--stats] [--break-on-untracked] [--break-at-frame N]
-        [--debug-nans] [--report-device]
+        [--debug-nans] [--report-device] [--keyframes] [--ba]
 """
 
 from __future__ import annotations
@@ -59,7 +69,11 @@ import numpy as np
 import torch
 
 from slambench_tpu_torch.config import Configuration, parse_args
+from slambench_tpu_torch.eval.trajectory import write_tum
 from slambench_tpu_torch.io.readers import make_reader
+from slambench_tpu_torch.models.keyframes import (
+    KeyframeStore, PoseGraphKFusion,
+)
 from slambench_tpu_torch.pipeline import KFusion, KFusionState, frame_gates
 from slambench_tpu_torch.policy import (
     apply_precision_policy, device_report, resolve_device, synchronize,
@@ -74,7 +88,7 @@ HEADER = ("frame\tacquisition\tpreprocessing\ttracking\tintegration"
 
 # Front-end flags of the JAX CLI that this port does not implement yet
 # (the config option --mesh is refused by ``run``).
-NOT_PORTED_FLAGS = ("--scan-chunk", "--keyframes", "--ba")
+NOT_PORTED_FLAGS = ("--scan-chunk",)
 
 
 def make_power_monitor(device: torch.device) -> power_mod.PowerMonitor:
@@ -109,10 +123,13 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
         max_frames: Optional[int] = None, quiet: bool = False,
         stats: bool = False, break_on_untracked: bool = False,
         break_at_frame: Optional[int] = None,
-        debug_nans: bool = False) -> dict:
+        debug_nans: bool = False, keyframes: bool = False,
+        ba: bool = False) -> dict:
     """Run the benchmark on ``device``; returns summary statistics with
     per-frame phase times in seconds. ``max_frames`` is the frame index
-    to stop at (a resumed run starts at the checkpoint's frame)."""
+    to stop at (a resumed run starts at the checkpoint's frame). With
+    ``keyframes`` (or ``ba``, which implies it) the summary's
+    ``posegraph`` holds the ``PoseGraphKFusion``."""
     if config.mesh:
         raise NotImplementedError(
             "--mesh is not ported yet (ROADMAP.md, queue 1, item 4)")
@@ -133,6 +150,10 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
                  config.init_pose, config.pyramid, camera, mu=config.mu,
                  icp_threshold=config.icp_threshold, backend=config.backend,
                  motion_model=config.motion_model, device=device)
+    pgkf = None
+    if keyframes or ba:
+        pgkf = PoseGraphKFusion(kf, KeyframeStore(),
+                                backend="ba" if ba else "posegraph")
     frame = 0
     if config.resume_file:
         state, frame = load_state(config.resume_file, device)
@@ -171,7 +192,15 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
             # (phase, state before, state after) for --debug-nans.
             written = []
             t1 = fence()
-            if fused:
+            if pgkf is not None:
+                before = state
+                state = pgkf.process_frame(state, depth, frame,
+                                           config.tracking_rate,
+                                           config.integration_rate)
+                t5 = fence()
+                t2 = t3 = t4 = t1
+                written.append(("the frame", before, state))
+            elif fused:
                 before = state
                 state = kf.compute_frame(state, depth, **gates)
                 t5 = fence()
@@ -253,6 +282,9 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
 
     if config.dump_volume_file:
         kf.dump_volume(state, config.dump_volume_file)
+    if pgkf is not None:
+        write_trajectories(pgkf, config.log_file or "benchmark")
+        summary["posegraph"] = pgkf
     if power is not None:
         Stats.print_all_data(sys.stderr)
         power.power_stats.print_all_data(sys.stderr)
@@ -263,6 +295,20 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
     summary["state"] = state
     summary["kfusion"] = kf
     return summary
+
+
+def write_trajectories(pgkf: PoseGraphKFusion, base: str) -> None:
+    """The raw odometry and the graph-corrected trajectory in TUM format
+    next to the log, and the graph's line on stderr."""
+    raw = np.stack(pgkf._trajectory) if pgkf._trajectory \
+        else np.zeros((0, 4, 4), np.float32)
+    write_tum(base + ".kf_raw.tum", raw)
+    write_tum(base + ".kf_corrected.tum", pgkf.corrected_trajectory())
+    n_loops = sum(1 for (i, j, _T, _w) in pgkf.graph.edges if abs(i - j) > 1)
+    print(f"keyframes: {len(pgkf.store.keyframes)}, graph edges: "
+          f"{len(pgkf.graph.edges)} ({n_loops} loop closures); "
+          f"trajectories: {base}.kf_raw.tum / {base}.kf_corrected.tum",
+          file=sys.stderr)
 
 
 def main(argv=None) -> int:
@@ -292,6 +338,8 @@ def main(argv=None) -> int:
     stats = flag("--stats")
     break_untracked = flag("--break-on-untracked")
     debug_nans = flag("--debug-nans")
+    keyframes = flag("--keyframes")
+    ba = flag("--ba")            # implies --keyframes
     break_at = value("--break-at-frame")
     device_name = value("--device", "cuda")
     try:
@@ -310,7 +358,7 @@ def main(argv=None) -> int:
         run(config, device, fused=fused, stats=stats,
             break_on_untracked=break_untracked,
             break_at_frame=None if break_at is None else int(break_at),
-            debug_nans=debug_nans)
+            debug_nans=debug_nans, keyframes=keyframes, ba=ba)
     except NotImplementedError as exc:
         print(f"ERROR: {exc}", file=sys.stderr)
         return 2

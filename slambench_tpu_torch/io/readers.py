@@ -2,9 +2,11 @@
 
 A copy of ``slambench_tpu/io/readers.py`` (the JAX package cannot be
 imported without JAX): ``DepthReader``, ``RawDepthReader``, the ICL-NUIM
-``SceneDepthReader``, the ``.scf`` scene-config parser and
-``make_reader``. The native mmap loader is not ported yet: a ``.raw``
-file always gets the numpy ``RawDepthReader``.
+``SceneDepthReader``, the native-backed ``NativeBackedRawReader``, the
+``.scf`` scene-config parser and ``make_reader``. A ``.raw`` file gets
+the native reader (``io/native.py``, built at first use; a failed build
+raises); ``SLAMBENCH_NATIVE_IO=0`` (or ``off``) selects the numpy
+``RawDepthReader``.
 (reference: kfusion/include/interface.h:28-318, kfusion/src/reader.cpp)
 """
 
@@ -140,6 +142,36 @@ class SceneDepthReader(DepthReader):
         return self._size
 
 
+class NativeBackedRawReader(DepthReader):
+    """``RawDepthReader`` drop-in whose frames come from the native
+    mmap/prefetch loader (``io/native.py``) while the fps pacing and
+    frame dropping stay in ``DepthReader``."""
+
+    def __init__(self, filename: str, fps: int = 0,
+                 blocking_read: bool = False):
+        super().__init__(fps, blocking_read)
+        from slambench_tpu_torch.io import native
+        self._native = native.NativeRawReader(filename)
+        self._size = self._native.get_input_size()
+        self.camera_open = True
+
+    def read_next_depth_frame(self) -> Optional[np.ndarray]:
+        self.get_next_frame()
+        return self._native.read_depth(self._frame)
+
+    def get_k(self):
+        return self._native.get_k()
+
+    def get_input_size(self):
+        return self._size
+
+
+def native_io_enabled() -> bool:
+    """False when ``SLAMBENCH_NATIVE_IO`` is ``0`` or ``off`` (the JAX
+    package's switch): the numpy readers and converter path then run."""
+    return os.environ.get("SLAMBENCH_NATIVE_IO", "1") not in ("0", "off")
+
+
 def _parse_scf(path: str) -> dict:
     """Parse a ``.scf`` scene-config file: ``key = value`` lines with
     relative paths resolved against the file's directory
@@ -164,7 +196,8 @@ def _parse_scf(path: str) -> dict:
 def make_reader(config) -> Optional[DepthReader]:
     """Reader factory with extension dispatch
     (reference: kfusion/src/reader.cpp:172-207 ``createReader``):
-    ``.raw`` files -> RawDepthReader, directories -> SceneDepthReader,
+    files -> NativeBackedRawReader (RawDepthReader with
+    ``SLAMBENCH_NATIVE_IO=0``), directories -> SceneDepthReader,
     ``.scf`` -> parse (its ``camera`` overrides ``config.camera``) and
     recurse; a missing path gives None."""
     path = config.input_file if hasattr(config, "input_file") else str(config)
@@ -182,5 +215,7 @@ def make_reader(config) -> Optional[DepthReader]:
     if os.path.isdir(path):
         return SceneDepthReader(path, fps, blocking)
     if os.path.isfile(path):
+        if native_io_enabled():
+            return NativeBackedRawReader(path, fps, blocking)
         return RawDepthReader(path, fps, blocking)
     return None

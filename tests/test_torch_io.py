@@ -24,7 +24,8 @@ from slambench_tpu_torch.io.raw import (  # noqa: E402
     RawWriter, frame_nbytes, raw_frame_count,
 )
 from slambench_tpu_torch.io.readers import (  # noqa: E402
-    SCENE_K, SCENE_SIZE, RawDepthReader, SceneDepthReader, make_reader,
+    SCENE_K, SCENE_SIZE, NativeBackedRawReader, RawDepthReader,
+    SceneDepthReader, make_reader,
 )
 from slambench_tpu_torch.tools import oni2raw, scene2raw  # noqa: E402
 
@@ -88,15 +89,21 @@ def test_scene_reader_truncates_like_jax(tmp_path):
     assert (a[1, :8] == 0).all()
 
 
-def test_make_reader_dispatch(tmp_path, scene):
+def test_make_reader_dispatch(tmp_path, scene, monkeypatch):
+    """A file gets the native-backed reader (the numpy RawDepthReader
+    with SLAMBENCH_NATIVE_IO=0), a directory the scene reader, a .scf
+    its target's reader."""
     path = str(tmp_path / "t.raw")
     with RawWriter(path, 16, 12) as w:
         w.write(np.zeros((12, 16), np.uint16))
-    assert isinstance(make_reader(path), RawDepthReader)
+    assert isinstance(make_reader(path), NativeBackedRawReader)
     assert isinstance(make_reader(str(scene[0])), SceneDepthReader)
     scf = tmp_path / "scene.scf"
     scf.write_text('input_file = "t.raw"\n')
-    assert isinstance(make_reader(str(scf)), RawDepthReader)
+    assert isinstance(make_reader(str(scf)), NativeBackedRawReader)
+    monkeypatch.setenv("SLAMBENCH_NATIVE_IO", "0")
+    assert type(make_reader(path)) is RawDepthReader
+    assert type(make_reader(str(scf))) is RawDepthReader
     (tmp_path / "empty.scf").write_text("# no input\n")
     assert make_reader(str(tmp_path / "empty.scf")) is None
     assert make_reader(str(tmp_path / "missing.nope")) is None
@@ -267,6 +274,7 @@ def test_scene2raw_numpy_path_roundtrip(scene, tmp_path, monkeypatch):
     """The port's converter against an independent f64 planarization
     (1 LSB), and byte for byte against the JAX converter's numpy path."""
     scene_dir, euclids = scene
+    monkeypatch.setenv("SLAMBENCH_NATIVE_IO", "0")
     out = tmp_path / "np.raw"
     assert scene2raw.convert(str(scene_dir), str(out), verbose=False) \
         == N_FRAMES
@@ -291,12 +299,20 @@ def test_scene2raw_numpy_path_roundtrip(scene, tmp_path, monkeypatch):
     assert scene2raw.main([str(scene_dir)]) == 1
 
 
-def test_scene_reader_agrees_with_converter(scene, tmp_path):
+def test_scene_reader_agrees_with_converter(scene, tmp_path, monkeypatch):
+    """The scene reader equals the converter's numpy path frame for
+    frame, and its native path within 1 LSB on < 0.1% of pixels
+    (test_scene2raw.py's native contract)."""
     scene_dir, _ = scene
-    out = tmp_path / "cmp.raw"
+    out, nat = tmp_path / "cmp.raw", tmp_path / "nat.raw"
+    scene2raw.convert(str(scene_dir), str(nat), verbose=False)
+    monkeypatch.setenv("SLAMBENCH_NATIVE_IO", "0")
     scene2raw.convert(str(scene_dir), str(out), verbose=False)
     sr = SceneDepthReader(str(scene_dir))
-    rr = RawDepthReader(str(out))
+    rr, nr = RawDepthReader(str(out)), RawDepthReader(str(nat))
     for _ in range(N_FRAMES):
-        np.testing.assert_array_equal(sr.read_next_depth_frame(),
-                                      rr.read_next_depth_frame())
+        want = sr.read_next_depth_frame()
+        np.testing.assert_array_equal(want, rr.read_next_depth_frame())
+        got = nr.read_next_depth_frame().astype(np.int64)
+        assert np.abs(got - want).max() <= 1
+        assert np.mean(got == want) > 0.999

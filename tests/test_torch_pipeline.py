@@ -194,9 +194,16 @@ def test_backend_names_and_unported_paths(dataset):
     from slambench_tpu_torch.frontend.benchmark import (
         NOT_PORTED_FLAGS, main,
     )
-    assert set(NOT_PORTED_FLAGS) == {"--scan-chunk", "--keyframes", "--ba"}
+    assert set(NOT_PORTED_FLAGS) == {"--scan-chunk"}
     for flag in NOT_PORTED_FLAGS:
         assert main([flag, "4", "-i", "x.raw"]) == 2, flag
+    # The keyframe flags are accepted and consumed: the command line then
+    # fails only on the missing input (exit 1), not as refused (2) or as
+    # an unknown option (0).
+    for flags in (["--keyframes"], ["--ba"], ["--keyframes", "--ba"]):
+        with pytest.raises(SystemExit) as exc:
+            main(["--device", "cpu", *flags, "-i", "x.raw"])
+        assert exc.value.code == 1, flags
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run(parse_args(["-i", dataset["raw"], "--mesh", "z:4"]), CPU)
 
