@@ -41,14 +41,31 @@ no ``ok`` line):
    on the card within one grey level of a CPU copy's on >= 99.9% of
    pixels, and the min-mip render route losing <= 0.1% of the oracle
    route's hits;
-5. resume — frames 0-14 with ``--checkpoint``, then ``--resume`` to
+5. scan — ``--scan-chunk`` as CUDA graph replays at phase 4's settings:
+   (a) boot frames 0-4, then ``compute_frames_scan`` in chunks of 8
+   against per-frame ``compute_frame`` from the same state, in JAX's
+   contract (positions within 1e-4 m, flags equal, < 2% of voxels
+   differ, < 1e-4 beyond 2 LSB), with the measured differences, whether
+   every leaf is bit for bit equal, the eager min-mip march's substeps a
+   raycast, and the replay tally (K1F once, K2F 19 times a frame) of
+   every chunk; (b) ``compute_frames_scan_rated`` at ``-r 2`` against
+   per-frame dispatch, ``integrated`` alternating exactly; (c) the CLI
+   with ``--fused --scan-chunk 8``: ATE mean < 0.03 m, tracked from
+   frame 4, computation mean / median / p90 beside phase 4's, capture
+   and instantiate time, ``max_memory_allocated`` with the graph; (d)
+   K1F and K2F counted in a ``KERNEL_TIMINGS=xprof`` trace of one
+   2-frame chunk (exactly 2 and 38) and in the route's tally, and one
+   replay's reduction and result codes against the eager
+   ``scan_step``'s; (e) one eager ``scan_step`` under
+   ``torch.cuda.set_sync_debug_mode("error")``;
+6. resume — frames 0-14 with ``--checkpoint``, then ``--resume`` to
    frame 29: the poses equal phase 4's within 1e-6 m;
-6. oracle + cv — ``--backend jnp --motion-model cv`` on the same clip at
+7. oracle + cv — ``--backend jnp --motion-model cv`` on the same clip at
    full size with KERNEL_TIMINGS=1: tracked from frame 5, ATE mean
    < 0.06 m, K1F once a frame and K2F once an ICP iteration; the port's
    ``eval/check_kernels.py`` reads the stderr lines, and the per-kernel
    means are printed;
-7. inputs and observation — (a) the first 12 frames of the clip written
+8. inputs and observation — (a) the first 12 frames of the clip written
    as an ICL-NUIM scene directory (ASCII euclidean depth, planarized
    back by the reader) with an ``.scf`` file that points at it and sets
    the camera: the scene reader's frames within 1 mm of the RAW frames,
@@ -63,10 +80,10 @@ no ``ok`` line):
    distance from phase 4's and the raycasting time beside phase 4's
    printed (JAX's bound is not conservative at its 8x8 block edges, so
    the warm start moves positions by millimetres: PERF.md); (c)
-   phase 6's KERNEL_TIMINGS log has a row for every row name of the JAX
+   phase 7's KERNEL_TIMINGS log has a row for every row name of the JAX
    route (``eval/check_kernels.missing_rows``), and the K1F / K2F span
    means are printed beside phase 3's kernel times;
-8. keyframes — (a) a revisiting orbit (640x480, 44 frames, amp 0.3,
+9. keyframes — (a) a revisiting orbit (640x480, 44 frames, amp 0.3,
    period 22) through the CLI's ``run()`` at phase 4's settings with
    ``--keyframes`` and with ``--keyframes --ba``: both TUM files with a
    row a frame, at least one loop closure, the corrected trajectory's
@@ -83,11 +100,11 @@ no ``ok`` line):
    keyframes) through ``PoseGraphKFusion``: the corrected tail ATE below
    the raw one, and in an offline replay of the same states BA's tail
    ATE at most the pose graph's + 1e-4 m;
-9. probe path — run the gather probes (``tools/mosaic_probe.py``, the
+10. probe path — run the gather probes (``tools/mosaic_probe.py``, the
    counterpart of the TPU tool that held the Pallas gathers P1-P3, and
    ``tools/gather_probe.py``) at their full shapes; every entry must
    agree with its plain twin and every kernel's launch count must move;
-10. report — one JSON line of kernel results (time, plain and library
+11. report — one JSON line of kernel results (time, plain and library
    time, bound, launches), the nvidia-smi line, and the final
    ``{"ok": true, ...}`` line.
 """
@@ -114,15 +131,18 @@ CLI_ARGS = ["-s", "4.8", "-p", "0.34,0.5,0.24", "-z", "4", "-c", "2",
             "-r", "1", "-k", "481.2,480,320,240", "-v", f"{VOLUME}"]
 ATE_MEAN_BOUND = 0.03           # metres, the synth2 class (ROADMAP.md)
 CV_ATE_MEAN_BOUND = 0.06        # test_pipeline_e2e.py::test_cv_motion_model_e2e
-RESUME_AT = 15                  # phase 5 checkpoints after frames 0-14
+SCAN_CHUNK = 8                  # phase 5 (a)-(c): --scan-chunk 8
+SCAN_XPROF_CHUNK = 2            # phase 5 (d) traces one chunk of 2 frames
+SCAN_POS_TOL = 1e-4             # m, test_pipeline_e2e.py:130
+RESUME_AT = 15                  # phase 6 checkpoints after frames 0-14
 RESUME_TOL = 1e-6               # test_pipeline_e2e.py:183
 RENDERING_RATE = 4              # CLI_ARGS' -z
 MIP_LOST_SHARE = 1e-3           # of the oracle render's hits
-SCENE_FRAMES = 12               # phase 7 writes these as a scene directory
+SCENE_FRAMES = 12               # phase 8 writes these as a scene directory
 SCENE_BREAK_AT = 10             # ... and runs them with --break-at-frame
 SCENE_CAMERA = "481.2,480,320,240"  # the clip's camera, set by the .scf
-WARM_FRAMES = 15                # phase 7 (b) runs frames 0-14 warm-started
-KF_FRAMES, KF_PERIOD, KF_AMP = 44, 22, 0.3   # phase 8's revisiting orbit
+WARM_FRAMES = 15                # phase 8 (b) runs frames 0-14 warm-started
+KF_FRAMES, KF_PERIOD, KF_AMP = 44, 22, 0.3   # phase 9's revisiting orbit
 KF_TAIL = slice(KF_PERIOD, KF_FRAMES)  # frames 22-43, the second lap
 KF_BA_SLACK = 1e-4              # test_ba_backend_beats_posegraph_on_revisit
 KF_MEAN_ERR = 0.08              # test_posegraph_kfusion_end_to_end's bound
@@ -238,7 +258,7 @@ def phase_device() -> str:
                          "smoke test needs a CUDA card")
     from slambench_tpu_torch.policy import apply_precision_policy
     smi = nvidia_smi_line()
-    log(f"[1/10 device] {smi} | torch {torch.__version__} | CUDA "
+    log(f"[1/11 device] {smi} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     apply_precision_policy()
     return smi
@@ -250,7 +270,7 @@ def phase_build() -> None:
     t0 = time.monotonic()
     path = build.build()
     build.load()
-    log(f"[2/10 build] {os.path.relpath(path)} in "
+    log(f"[2/11 build] {os.path.relpath(path)} in "
         f"{time.monotonic() - t0:.2f} s (nvcc {build.build_seconds:.2f} s)")
     t0 = time.monotonic()
     path = native.build()
@@ -278,7 +298,7 @@ def phase_kernels(dev: torch.device) -> dict:
     )
     from slambench_tpu_torch.tools.timing import bound_by, bound_ms
 
-    log("[3/10 kernels] kernel vs plain torch on the card")
+    log("[3/11 kernels] kernel vs plain torch on the card")
     dim = (4.8, 4.8, 4.8)
     poses = orbit_trajectory(12, [0.34 * 4.8, 0.5 * 4.8, 0.24 * 4.8])
     depth_mm = render_depth_frame(SyntheticScene(dim=dim), poses[11],
@@ -597,7 +617,7 @@ def phase_main_path(dev: torch.device, man: dict, work: str) -> dict:
         compute_ate, load_gt_trajectory, parse_benchmark_log,
     )
 
-    log(f"[4/10 main path] traj2-like clip, {N_FRAMES} frames 640x480, "
+    log(f"[4/11 main path] traj2-like clip, {N_FRAMES} frames 640x480, "
         f"CLI {' '.join(CLI_ARGS)}")
     log_path = os.path.join(work, "benchmark.log")
     reset_launches()
@@ -671,6 +691,286 @@ def phase_main_path(dev: torch.device, man: dict, work: str) -> dict:
             "ate_by_frame": ate}
 
 
+def scan_contract(what: str, pos, pos_ref, tracked, tracked_ref,
+                  integrated, integrated_ref, tsdf, tsdf_ref) -> dict:
+    """JAX's contract between a batched route and per-frame dispatch
+    (tests/test_pipeline_e2e.py:88-137): positions within
+    SCAN_POS_TOL, tracked and integrated equal, under 2% of voxels
+    differ at all and under 1e-4 by more than 2 LSB."""
+    d_pos = float(np.abs(np.asarray(pos) - np.asarray(pos_ref)).max())
+    d = (tsdf.to(torch.int32) - tsdf_ref.to(torch.int32)).abs()
+    differ = float((d > 0).float().mean())
+    beyond = float((d > 2).float().mean())
+    same_flags = (np.array_equal(tracked, tracked_ref)
+                  and np.array_equal(integrated, integrated_ref))
+    log(f"  {what}: positions at most {d_pos:.3e} m apart, tracked and "
+        f"integrated {'equal' if same_flags else 'DIFFER'}, voxels "
+        f"differing {differ:.3e} (beyond 2 LSB {beyond:.3e})")
+    if d_pos > SCAN_POS_TOL or not same_flags or differ >= 0.02 \
+            or beyond >= 1e-4:
+        raise RuntimeError(f"{what}: outside JAX's scan contract")
+    return {"max_position_diff": d_pos, "voxels_differing": differ,
+            "voxels_beyond_2lsb": beyond}
+
+
+def trace_idle_share(trace_dir: str) -> dict:
+    """Busy time (the union of the device events' intervals) and idle
+    share of the device lane between its first and last event, from the
+    Chrome trace of the KERNEL_TIMINGS=xprof route."""
+    from slambench_tpu_torch.eval import xprof2log
+    spans = []
+    for path in xprof2log.find_trace_files(trace_dir):
+        trace = xprof2log.load_trace(path)
+        pids = xprof2log.device_pids(trace)
+        spans += [(float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]))
+                  for ev in trace["traceEvents"]
+                  if ev.get("ph") == "X" and ev.get("pid") in pids
+                  and ev.get("dur", 0) > 0]
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    span = max(b for _, b in spans) - min(a for a, _ in spans)
+    return {"span_ms": span / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / span}
+
+
+def scan_routes(dev: torch.device, man: dict) -> dict:
+    """Phase 5 (a), (b), the replay half of (d), and (e), on one
+    ``KFusion`` at phase 4's settings (freed on return)."""
+    from slambench_tpu_torch.config import parse_args
+    from slambench_tpu_torch.frontend.benchmark import make_kfusion
+    from slambench_tpu_torch.io.readers import RawDepthReader, make_reader
+    from slambench_tpu_torch.ops import raycast_fast
+    from slambench_tpu_torch.pipeline import frame_gates
+    from slambench_tpu_torch.tools.mosaic_probe import K2_TOL
+
+    config = parse_args(["-i", man["raw"], *CLI_ARGS])
+    kf = make_kfusion(config, make_reader(config), dev)
+    rd = RawDepthReader(man["raw"])
+    frames = kf.to_device(np.stack([rd.read_next_depth_frame()
+                                    for _ in range(N_FRAMES)]))
+    boot = kf.init_state()
+    for f in range(5):          # -r 1 and -r 2 gates agree on frames 0-4
+        boot = kf.compute_frame(boot, frames[f], **frame_gates(f, 1, 1))
+
+    def per_frame(rate: int, last: int):
+        """compute_frame on frames 5..last-1, each fenced and timed."""
+        state, pos, tracked, integrated, ms = boot, [], [], [], []
+        for f in range(5, last):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = kf.compute_frame(state, frames[f],
+                                     **frame_gates(f, 1, rate))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            pos.append(state.pose[:3, 3].cpu().numpy())
+            tracked.append(bool(state.tracked))
+            integrated.append(bool(state.integrated))
+        return state, pos, tracked, integrated, ms
+
+    # (a) the steady-state route.
+    raycast_fast.march_calls = raycast_fast.march_substeps = 0
+    ref, pos_ref, tr_ref, in_ref, eager_ms = per_frame(1, N_FRAMES)
+    substeps = raycast_fast.march_substeps / raycast_fast.march_calls
+    raycast_fast.march_substeps = 0
+    kf.raycasting(ref, early_exit=False)
+    budget = raycast_fast.march_substeps
+    state, outs, chunk_ms = boot, [], []
+    for c in range(5, N_FRAMES, SCAN_CHUNK):
+        before = dict(kf.graphs.launches)
+        block = frames[c:min(c + SCAN_CHUNK, N_FRAMES)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, o = kf.compute_frames_scan(state, block)
+        torch.cuda.synchronize()
+        chunk_ms.append(1e3 * (time.perf_counter() - t0) / block.shape[0])
+        n = block.shape[0]
+        got = {k: v - before[k] for k, v in kf.graphs.launches.items()}
+        if got != {"K1F": n, "K2F": sum(PYRAMID) * n}:
+            raise RuntimeError(f"scan chunk of {n}: tally {got}")
+        outs.append({k: v.cpu().numpy() for k, v in o.items()})
+    cat = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    parity = scan_contract("(a) compute_frames_scan vs compute_frame",
+                           cat["pos"], pos_ref, cat["tracked"], tr_ref,
+                           cat["integrated"], in_ref, state.tsdf, ref.tsdf)
+    exact = all(torch.equal(getattr(state, f), getattr(ref, f))
+                for f in ("tsdf", "weight", "mip", "pose", "ref_vertex",
+                          "ref_normal", "reduction", "track_result"))
+    capture = kf.graphs.captures[0]
+    log(f"  (a) every leaf of the final state bit for bit equal: {exact}; "
+        f"eager min-mip march {substeps:.2f} substeps a raycast of its "
+        f"{budget} budget; per frame: eager compute_frame "
+        f"{np.mean(eager_ms):.3f} ms, graph chunks {chunk_ms} ms "
+        f"(the first holds the capture {capture['capture_s']:.3f} s + "
+        f"instantiate {capture['instantiate_s']:.3f} s)")
+
+    # (b) the rated route at -r 2 (gate period 2), frames 5-20.
+    last = 5 + 2 * SCAN_CHUNK
+    ref2, pos2, tr2, in2, _ = per_frame(2, last)
+    state, outs = boot, []
+    for c in range(5, last, SCAN_CHUNK):
+        block = frames[c:c + SCAN_CHUNK].reshape(-1, 2, *frames.shape[1:])
+        state, o = kf.compute_frames_scan_rated(
+            state, block, tracking_rate=1, integration_rate=2, phase=c % 2)
+        outs.append({k: v.cpu().numpy() for k, v in o.items()})
+    cat = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    if not np.array_equal(cat["integrated"], np.arange(5, last) % 2 == 0):
+        raise RuntimeError(f"(b) integrated {cat['integrated']}")
+    rated = scan_contract("(b) compute_frames_scan_rated -r 2 vs "
+                          "compute_frame", cat["pos"], pos2, cat["tracked"],
+                          tr2, cat["integrated"], in2, state.tsdf, ref2.tsdf)
+
+    # (d, second half) one replay against the eager scan_step.
+    eager = kf.scan_step(boot, frames[5])
+    replayed, _ = kf.compute_frames_scan(boot, frames[5:6])
+    same = {k: torch.equal(getattr(eager, k).view(torch.int32),
+                           getattr(replayed, k).view(torch.int32))
+            for k in ("reduction", "track_result")}
+    if not same["track_result"]:
+        raise RuntimeError("(d) the replay's result codes differ from the "
+                           "eager scan_step's")
+    if not same["reduction"]:
+        compare("(d) replay vs eager scan_step reduction",
+                replayed.reduction, eager.reduction, K2_TOL)
+    log(f"  (d) one replay vs the eager scan_step from the same state: "
+        f"reduction {'bit for bit' if same['reduction'] else 'within K2_TOL'}"
+        f", track_result bit for bit")
+
+    # (e) no host read in the step.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kf.scan_step(boot, frames[5])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("  (e) one eager scan_step under sync debug mode \"error\": no "
+        "host read")
+    return {"parity": parity, "exact": exact, "rated": rated,
+            "march_substeps": substeps, "march_budget": budget,
+            "eager_ms": float(np.mean(eager_ms)),
+            "chunk_ms": chunk_ms, "capture": capture,
+            "replay_vs_eager": same}
+
+
+def phase_scan(dev: torch.device, man: dict, work: str, main: dict) -> dict:
+    """--scan-chunk on the card: (a) compute_frames_scan in chunks of
+    SCAN_CHUNK against per-frame compute_frame from one boot state; (b)
+    the rated route at -r 2; (c) the CLI with --fused --scan-chunk 8;
+    (d) K1F and K2F inside the replays, from a KERNEL_TIMINGS=xprof trace
+    and from the route's tally, and one replay against the eager
+    scan_step; (e) one eager scan_step under sync debug mode "error"."""
+    from slambench_tpu_torch.eval.check_pos import (
+        compute_ate, load_gt_trajectory, parse_benchmark_log,
+    )
+
+    log(f"[5/11 scan] traj2-like clip, {N_FRAMES} frames, chunks of "
+        f"{SCAN_CHUNK}: CUDA graph replays against per-frame dispatch")
+    result = scan_routes(dev, man)
+    torch.cuda.empty_cache()
+
+    # (c) the CLI.
+    log_path = os.path.join(work, "scan.log")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    summary = run_cli(man, dev, log_path, fused=True, scan_chunk=SCAN_CHUNK)
+    peak = torch.cuda.max_memory_allocated()
+    counters = frame_launches()
+    graphs = summary["kfusion"].graphs
+    logd = parse_benchmark_log(log_path)
+    ate = compute_ate(logd, load_gt_trajectory(man["gt"]))["ATE"]
+    n = summary["frames"]
+    batched = n - 4                     # frames 4.. run in chunks
+    if n != N_FRAMES or not logd["tracked"][4:].all():
+        raise RuntimeError(f"(c) {n} frames, tracked {logd['tracked']}")
+    if not ate.mean() < ATE_MEAN_BOUND:
+        raise RuntimeError(f"(c) ATE mean {ate.mean():.5f} m >= "
+                           f"{ATE_MEAN_BOUND}")
+    if graphs.launches != {"K1F": batched, "K2F": sum(PYRAMID) * batched}:
+        raise RuntimeError(f"(c) replay tally {graphs.launches}")
+    # Eager launches: the 4 per-frame boot frames and the one warm-up.
+    check_frame_launches(counters, 5, "(c) eager launches")
+    comp = 1e3 * np.asarray(summary["computation"])
+    ms = {"computation_mean": float(comp[5:].mean()),
+          "computation_median": float(np.median(comp[5:])),
+          "computation_p90": float(np.percentile(comp[5:], 90)),
+          "computation_mean_after_first_chunk":
+              float(comp[4 + SCAN_CHUNK:].mean()),
+          "rendering_mean": 1e3 * float(np.mean(summary["rendering"][5:])),
+          "total_mean": 1e3 * float(np.mean(summary["total"][5:]))}
+    cap = graphs.captures[0]
+    log(f"  (c) --fused --scan-chunk {SCAN_CHUNK}: ATE mean "
+        f"{ate.mean():.5f} m, max {ate.max():.5f} m; tracked "
+        f"{int(logd['tracked'].sum())}/{n}; replay tally {graphs.launches}"
+        f", eager launches (boot, warm-up) {counters}")
+    log("  (c) ms a frame (frames 5..): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; phase 4 (phased, same call): computation mean "
+        f"{main['ms']['computation']:.3f}, median "
+        f"{main['ms']['computation_median']:.3f}, p90 "
+        f"{main['ms']['computation_p90']:.3f}")
+    log(f"  (c) capture {cap['capture_s']:.3f} s, instantiate "
+        f"{cap['instantiate_s']:.3f} s; max_memory_allocated with the "
+        f"graph {peak / 2 ** 30:.3f} GiB")
+
+    # (d) K1F and K2F inside the replays of one traced chunk.
+    err = io.StringIO()
+    os.environ["KERNEL_TIMINGS"] = "xprof"
+    tempfile.tempdir = work             # the trace's directory goes there
+    try:
+        with contextlib.redirect_stderr(err):
+            xs = run_cli(man, dev, os.path.join(work, "xprof.log"),
+                         fused=True, scan_chunk=SCAN_XPROF_CHUNK,
+                         max_frames=4 + 2 * SCAN_XPROF_CHUNK)
+    finally:
+        del os.environ["KERNEL_TIMINGS"]
+        tempfile.tempdir = None
+    lines = [l.split() for l in err.getvalue().splitlines()]
+    events = [(p[0], float(p[1])) for p in lines
+              if len(p) == 2 and p[1].replace(".", "", 1).isdigit()]
+    traced = {"K1F": sum("mm2m_bilateral_kernel" in e for e, _ in events),
+              "K2F": sum("track_reduce_kernel" in e for e, _ in events)}
+    want = {"K1F": SCAN_XPROF_CHUNK, "K2F": sum(PYRAMID) * SCAN_XPROF_CHUNK}
+    summary_line = [l for l in err.getvalue().splitlines()
+                    if l.startswith("xprof kernel attribution")]
+    log(f"  (d) xprof trace of one {SCAN_XPROF_CHUNK}-frame chunk: "
+        f"{len(events)} device events ({len(events) / SCAN_XPROF_CHUNK:.0f}"
+        f" a frame); K1F/K2F in it {traced}, tally of the run "
+        f"{xs['kfusion'].graphs.launches}; {summary_line}")
+    if traced != want:
+        raise RuntimeError(f"(d) traced K1F/K2F {traced}, expected {want}")
+    k_ns = {k: float(np.mean([ns for e, ns in events if key in e]))
+            for k, key in (("K1F", "mm2m_bilateral_kernel"),
+                           ("K2F", "track_reduce_kernel"))}
+    busy_ms = sum(ns for _, ns in events) / 1e6 / SCAN_XPROF_CHUNK
+    idle = trace_idle_share(summary_line[0].rsplit("(", 1)[1].rstrip(")"))
+    by_name: dict = {}
+    for e, ns in events:
+        by_name[e] = by_name.get(e, 0.0) + ns / 1e6 / SCAN_XPROF_CHUNK
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log("  (d) top device time a replayed frame (ms, under the profiler): "
+        + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top))
+    log(f"  (d) traced kernel means: K1F {k_ns['K1F']:.0f} ns, K2F "
+        f"{k_ns['K2F']:.0f} ns; device events sum {busy_ms:.3f} ms a "
+        f"frame; device lane {idle['span_ms']:.3f} ms from first to last "
+        f"event, busy {idle['busy_ms']:.3f} ms, idle share "
+        f"{idle['idle_share']:.4f} (under the profiler)")
+    return {**result,
+            "cli": {"ate_mean": float(ate.mean()), "ate_max": float(ate.max()),
+                    "ms": ms, "peak_gib": peak / 2 ** 30,
+                    "capture_s": cap["capture_s"],
+                    "instantiate_s": cap["instantiate_s"],
+                    "tally": dict(graphs.launches), "counters": counters},
+            "xprof": {"events": len(events), "traced": traced,
+                      "kernel_ns": k_ns, "events_ms_a_frame": busy_ms,
+                      "top_ms": dict(top), **idle}}
+
+
 def phase_resume(dev: torch.device, man: dict, work: str,
                  main: dict) -> dict:
     """Frames 0-14 with --checkpoint, then --resume to frame 29; the
@@ -678,7 +978,7 @@ def phase_resume(dev: torch.device, man: dict, work: str,
     final pose must equal phase 4's within RESUME_TOL."""
     from slambench_tpu_torch.eval.check_pos import parse_benchmark_log
 
-    log(f"[5/10 resume] frames 0-{RESUME_AT - 1} with --checkpoint, then "
+    log(f"[6/11 resume] frames 0-{RESUME_AT - 1} with --checkpoint, then "
         f"--resume to frame {N_FRAMES - 1}")
     ck = os.path.join(work, "state.npz")
     rest_log = os.path.join(work, "resumed.log")
@@ -715,7 +1015,7 @@ def phase_oracle_cv(dev: torch.device, man: dict, work: str) -> dict:
     )
 
     extra = ["--backend", "jnp", "--motion-model", "cv"]
-    log(f"[6/10 oracle + cv] {' '.join(extra)}, KERNEL_TIMINGS=1")
+    log(f"[7/11 oracle + cv] {' '.join(extra)}, KERNEL_TIMINGS=1")
     log_path = os.path.join(work, "oracle_cv.log")
     err = io.StringIO()
     reset_launches()
@@ -809,7 +1109,7 @@ def phase_inputs(dev: torch.device, man: dict, work: str, main: dict,
                  oracle: dict, kernels: dict, smi: str) -> dict:
     """(a) the scene and .scf inputs through the CLI with --stats,
     --debug-nans, --report-device and --break-at-frame; (b) the warm
-    start against phase 4; (c) phase 6's KERNEL_TIMINGS row set."""
+    start against phase 4; (c) phase 7's KERNEL_TIMINGS row set."""
     from slambench_tpu_torch.eval.check_kernels import missing_rows
     from slambench_tpu_torch.eval.check_pos import (
         compute_ate, load_gt_trajectory, parse_benchmark_log,
@@ -820,7 +1120,7 @@ def phase_inputs(dev: torch.device, man: dict, work: str, main: dict,
     )
     from slambench_tpu_torch.tools import scene2raw
 
-    log(f"[7/10 inputs and observation] (a) {SCENE_FRAMES} frames as an "
+    log(f"[8/11 inputs and observation] (a) {SCENE_FRAMES} frames as an "
         f"ICL-NUIM scene + .scf, --stats --debug-nans --report-device "
         f"--break-at-frame {SCENE_BREAK_AT}")
     t0 = time.monotonic()
@@ -973,14 +1273,14 @@ def phase_inputs(dev: torch.device, man: dict, work: str, main: dict,
 
     missing = missing_rows(oracle["kernel_mean_ns"])
     if missing:
-        failures.append(f"phase 6's KERNEL_TIMINGS log lacks the JAX rows "
+        failures.append(f"phase 7's KERNEL_TIMINGS log lacks the JAX rows "
                         f"{missing}")
     spans = {"K1F": oracle["kernel_mean_ns"]["mm2meters+bilateralFilter"]
              * 1e-3,
              "K2F": oracle["kernel_mean_ns"]["track+reduce"] * 1e-3}
     own = {"K1F": kernels["k1f"]["ms"] * 1e3,
            "K2F": kernels["k2f"]["by_shape"]["240x320"]["ms"] * 1e3}
-    log(f"  (c) JAX rows missing from phase 6's log: {missing}; span "
+    log(f"  (c) JAX rows missing from phase 7's log: {missing}; span "
         f"means K1F {spans['K1F']:.2f} us, K2F {spans['K2F']:.2f} us (all "
         f"levels) "
         f"beside the kernels' own K1F {own['K1F']:.2f} us, K2F "
@@ -1246,7 +1546,7 @@ def phase_keyframes(dev: torch.device, work: str, main: dict) -> dict:
     )
     from slambench_tpu_torch.pipeline import KFusion
 
-    log(f"[8/10 keyframes] (a) revisiting orbit, {KF_FRAMES} frames 640x480, "
+    log(f"[9/11 keyframes] (a) revisiting orbit, {KF_FRAMES} frames 640x480, "
         f"amp {KF_AMP}, period {KF_PERIOD}, CLI {' '.join(CLI_ARGS)} "
         "--keyframes [--ba]")
     man = generate_dataset(os.path.join(work, "orbit"), dev,
@@ -1397,7 +1697,7 @@ def phase_probes(dev: torch.device) -> dict:
     from slambench_tpu_torch.ops.hopper import bilateral, gather, reduce
     from slambench_tpu_torch.tools import gather_probe, mosaic_probe
 
-    log("[9/10 probe path] tools/mosaic_probe.py and tools/gather_probe.py "
+    log("[10/11 probe path] tools/mosaic_probe.py and tools/gather_probe.py "
         "at full shapes")
     bilateral.launches = 0
     bilateral.fused_launches = 0
@@ -1454,6 +1754,7 @@ def main() -> int:
         log(f"  clip synthesised on the card in "
             f"{time.monotonic() - t0:.2f} s")
         mp = phase_main_path(dev, man, work)
+        sc = phase_scan(dev, man, work, mp)
         rs = phase_resume(dev, man, work, mp)
         oc = phase_oracle_cv(dev, man, work)
         io_ = phase_inputs(dev, man, work, mp, oc, kr, smi)
@@ -1476,7 +1777,9 @@ def main() -> int:
          "route": "cuda",
          "source": "slambench_tpu_torch/ops/hopper/csrc/bilateral.cu",
          "replaces": "slambench_tpu/ops/pallas/bilateral.py:64",
-         "launches": mp["launches"]["K1F"], "max_abs_err": k1f["max_abs_err"],
+         "launches": mp["launches"]["K1F"],
+         "scan_launches": sc["cli"]["tally"]["K1F"],
+         "max_abs_err": k1f["max_abs_err"],
          "ms": k1f["ms"], "plain_ms": k1f["plain_ms"],
          "bound_ms": k1f["bound_ms"], "bound_by": k1f["bound_by"],
          "library_ms": None},
@@ -1492,7 +1795,9 @@ def main() -> int:
         {"name": "K2F track_reduce (track fused into K2)", "route": "cuda",
          "source": "slambench_tpu_torch/ops/hopper/csrc/reduce.cu",
          "replaces": "slambench_tpu/ops/pallas/reduce.py:87",
-         "launches": mp["launches"]["K2F"], "max_abs_err": k2f["max_abs_err"],
+         "launches": mp["launches"]["K2F"],
+         "scan_launches": sc["cli"]["tally"]["K2F"],
+         "max_abs_err": k2f["max_abs_err"],
          "ms": k2f_0["ms"], "plain_ms": k2f_0["plain_ms"],
          "bound_ms": k2f_0["bound_ms"], "bound_by": k2f_0["bound_by"],
          "library_ms": None},
@@ -1528,11 +1833,12 @@ def main() -> int:
                               v["bound_ns_per_elem"], v["host_bound"]]
               for tool in ("mosaic", "gather")
               for k, v in pr[tool].items() if isinstance(v, dict)}
-    log("[10/10 report]")
+    log("[11/11 report]")
     mp_report = {k: v for k, v in mp.items()
                  if k not in ("positions", "final_pose", "raycasting_s",
                               "ate_by_frame")}
-    log(json.dumps({"main_path": mp_report, "resume": rs, "oracle_cv": oc,
+    log(json.dumps({"main_path": mp_report, "scan": sc, "resume": rs,
+                    "oracle_cv": oc,
                     "inputs": io_, "keyframes": kfp,
                     "k1f": k1f, "k2_by_shape": k2["by_shape"],
                     "k2f_by_shape": k2f["by_shape"]}))

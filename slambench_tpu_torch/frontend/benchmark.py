@@ -36,6 +36,28 @@ Observation flags, as in the JAX CLI:
     runs only under the flag;
   * ``--report-device`` prints the platform and device table to stderr.
 
+``--scan-chunk N`` (with ``--fused``) batches dispatches as the JAX
+CLI does: steady-state frames (past frame 3) are read ahead up to N at a
+time, in whole gate periods (``lcm(-t, -r)``), and run through
+``KFusion.compute_frames_scan`` (``-r 1``) or
+``compute_frames_scan_rated``: on the card, one replay of a CUDA graph a
+period (``graphs.py``). The chunk's frames are uploaded before its timed
+window; its rows have phase columns 0, ``computation`` the chunk's fenced
+time over its frames, and ``rendering`` the three images, rendered once
+at the chunk's end, shared out the same way. A flag that needs each
+frame observed turns it off with one line on stderr (the gate period
+above N, no ``--fused``, KERNEL_TIMINGS spans, ``--keyframes``,
+``--stats``, the break flags, ``--debug-nans``); the tail of fewer
+frames than a period runs per frame.
+
+With ``KERNEL_TIMINGS=xprof`` no span is timed; instead one dispatch
+(a frame past 3, or a chunk) whose signature already ran is traced with
+``torch.profiler`` into a new directory under ``$TMPDIR``, and its
+device events go to stderr as ``name ns`` lines
+(``eval/xprof2log.py``), then ``xprof kernel attribution: N events over
+F frames (dir)``; a trace with no device lane (the CPU) prints a notice
+instead. The first replay of a signature includes its capture.
+
 ``--keyframes`` runs the keyframe layer (``models/keyframes.py``): each
 frame goes through ``PoseGraphKFusion.process_frame`` (keyframe
 promotion, loop-closure ICP on K2F, graph optimization between frames),
@@ -53,15 +75,19 @@ The input (``-i``) is a ``.raw`` file, an ICL-NUIM scene directory, or
 a ``.scf`` scene-config file (``io/readers.py``).
 
 Usage:  python -m slambench_tpu_torch.frontend.benchmark -i scene.raw
-        -o out.log [reference flags] [--fused] [--device cuda|cpu]
-        [--stats] [--break-on-untracked] [--break-at-frame N]
-        [--debug-nans] [--report-device] [--keyframes] [--ba]
+        -o out.log [reference flags] [--fused] [--scan-chunk N]
+        [--device cuda|cpu] [--stats] [--break-on-untracked]
+        [--break-at-frame N] [--debug-nans] [--report-device]
+        [--keyframes] [--ba]
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -69,6 +95,7 @@ import numpy as np
 import torch
 
 from slambench_tpu_torch.config import Configuration, parse_args
+from slambench_tpu_torch.eval import xprof2log
 from slambench_tpu_torch.eval.trajectory import write_tum
 from slambench_tpu_torch.io.readers import make_reader
 from slambench_tpu_torch.models.keyframes import (
@@ -81,6 +108,7 @@ from slambench_tpu_torch.policy import (
 from slambench_tpu_torch.utils import power as power_mod
 from slambench_tpu_torch.utils.checkpoint import load_state, save_state
 from slambench_tpu_torch.utils.perfstats import Stats, StatType
+from slambench_tpu_torch.utils.timers import spans_enabled, xprof_enabled
 
 HEADER = ("frame\tacquisition\tpreprocessing\ttracking\tintegration"
           "\traycasting\trendering\tcomputation\ttotal    \tX          "
@@ -88,7 +116,10 @@ HEADER = ("frame\tacquisition\tpreprocessing\ttracking\tintegration"
 
 # Front-end flags of the JAX CLI that this port does not implement yet
 # (the config option --mesh is refused by ``run``).
-NOT_PORTED_FLAGS = ("--scan-chunk",)
+NOT_PORTED_FLAGS = ()
+
+ROW = ("%d\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f"
+       "\t%.10f\t%.10f\t%.10f\t%d        \t%d")
 
 
 def make_power_monitor(device: torch.device) -> power_mod.PowerMonitor:
@@ -103,6 +134,21 @@ def make_power_monitor(device: torch.device) -> power_mod.PowerMonitor:
         print(f"ERROR: --stats on {device} needs the card's power rail: "
               f"{exc}", file=sys.stderr)
         raise SystemExit(1) from exc
+
+
+def make_kfusion(config: Configuration, reader,
+                 device: torch.device) -> KFusion:
+    """The pipeline for a configuration and its opened reader: the
+    compute size and the camera scaled by the compute-size ratio."""
+    in_w, in_h = reader.get_input_size()
+    ratio = config.compute_size_ratio
+    camera = tuple(c / ratio for c in (
+        config.camera if config.camera_overrided else reader.get_k()))
+    return KFusion((in_w // ratio, in_h // ratio), config.volume_resolution,
+                   config.volume_size, config.init_pose, config.pyramid,
+                   camera, mu=config.mu, icp_threshold=config.icp_threshold,
+                   backend=config.backend, motion_model=config.motion_model,
+                   device=device)
 
 
 def check_nans(phase: str, frame: int, before: KFusionState,
@@ -124,12 +170,13 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
         stats: bool = False, break_on_untracked: bool = False,
         break_at_frame: Optional[int] = None,
         debug_nans: bool = False, keyframes: bool = False,
-        ba: bool = False) -> dict:
+        ba: bool = False, scan_chunk: int = 0) -> dict:
     """Run the benchmark on ``device``; returns summary statistics with
     per-frame phase times in seconds. ``max_frames`` is the frame index
     to stop at (a resumed run starts at the checkpoint's frame). With
     ``keyframes`` (or ``ba``, which implies it) the summary's
-    ``posegraph`` holds the ``PoseGraphKFusion``."""
+    ``posegraph`` holds the ``PoseGraphKFusion``. ``scan_chunk`` > 1
+    batches steady-state frames (``--scan-chunk``)."""
     if config.mesh:
         raise NotImplementedError(
             "--mesh is not ported yet (ROADMAP.md, queue 1, item 4)")
@@ -141,15 +188,7 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
         config.print_arguments()
         raise SystemExit(1)
 
-    in_w, in_h = reader.get_input_size()
-    ratio = config.compute_size_ratio
-    W, H = in_w // ratio, in_h // ratio
-    camera = tuple(c / ratio for c in (
-        config.camera if config.camera_overrided else reader.get_k()))
-    kf = KFusion((W, H), config.volume_resolution, config.volume_size,
-                 config.init_pose, config.pyramid, camera, mu=config.mu,
-                 icp_threshold=config.icp_threshold, backend=config.backend,
-                 motion_model=config.motion_model, device=device)
+    kf = make_kfusion(config, reader, device)
     pgkf = None
     if keyframes or ba:
         pgkf = PoseGraphKFusion(kf, KeyframeStore(),
@@ -170,19 +209,100 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
         synchronize(device)
         return time.monotonic()
 
+    gate_period = math.lcm(config.tracking_rate, config.integration_rate)
+    scan_ok = scan_chunk_ok(scan_chunk, gate_period, fused=fused,
+                            spans=spans_enabled(), keyframes=pgkf is not None,
+                            stats=stats,
+                            breaks=(break_on_untracked
+                                    or break_at_frame is not None),
+                            debug_nans=debug_nans)
+    xprof = XprofTrace(device) if xprof_enabled() else None
+
     logfile = open(config.log_file, "w") if config.log_file else None
     logstream = logfile or sys.stdout
     phases = ("preprocessing", "tracking", "integration", "raycasting",
               "rendering")
     summary = {"frames": 0, "computation": [], "total": [],
                **{p: [] for p in phases}}
+    pending: list = []                # frames read ahead but not run
+
+    def next_frame():
+        return pending.pop(0) if pending else reader.read_next_depth_frame()
+
+    def run_chunk(state, depths: list, t0: float):
+        """One batched dispatch of whole gate periods and its rows (the
+        JAX CLI's chunk, frontend/benchmark.py:224-313)."""
+        n = len(depths)
+        pos_before = kf.get_position(state)
+        stacked = kf.to_device(np.stack(depths))
+        t1 = fence()
+        phase = frame % gate_period
+        tracing = xprof is not None and xprof.wants(
+            ("scan", n, gate_period, phase))
+        if tracing:
+            xprof.start(n)
+        if gate_period == 1:
+            state, outs = kf.compute_frames_scan(state, stacked)
+        else:
+            state, outs = kf.compute_frames_scan_rated(
+                state, stacked.reshape(-1, gate_period, *stacked.shape[1:]),
+                tracking_rate=config.tracking_rate,
+                integration_rate=config.integration_rate, phase=phase)
+        t5 = fence()
+        if tracing:
+            xprof.stop()
+        outs = {k: v.cpu().numpy() for k, v in outs.items()}
+        # The images once, at the chunk's end, their time shared out.
+        kf.render_depth_image(state)
+        kf.render_track_image(state)
+        if any((frame + i) % config.rendering_rate == 0 for i in range(n)):
+            kf.render_volume_image(state)
+        t6 = fence()
+        per, per_r = (t5 - t1) / n, (t6 - t5) / n
+        init = np.asarray(config.init_pose, np.float32)
+        for i in range(n):
+            acq = t1 - t0 if i == 0 else 0.0
+            pos = pos_before if i == 0 else outs["pos"][i - 1] - init
+            print(ROW % (frame + i, acq, 0.0, 0.0, 0.0, 0.0, per_r, per,
+                         acq + per + per_r, pos[0], pos[1], pos[2],
+                         int(outs["tracked"][i]), int(outs["integrated"][i])),
+                  file=logstream)
+            for name in phases[:-1]:
+                summary[name].append(0.0)
+            summary["rendering"].append(per_r)
+            summary["computation"].append(per)
+            summary["total"].append(acq + per + per_r)
+            summary["frames"] += 1
+        return state
+
     try:
         print(HEADER, file=logstream)
         t0 = time.monotonic()
         while max_frames is None or frame < max_frames:
-            depth_np = reader.read_next_depth_frame()
+            depth_np = next_frame()
             if depth_np is None:
                 break
+            if scan_ok and frame > 3:
+                # Read ahead up to scan_chunk frames; run whole gate
+                # periods, put the rest back for the next round.
+                depths = [depth_np]
+                while len(depths) < scan_chunk and (
+                        max_frames is None
+                        or frame + len(depths) < max_frames):
+                    more = next_frame()
+                    if more is None:
+                        break
+                    depths.append(more)
+                n_use = len(depths) // gate_period * gate_period
+                pending[:0] = depths[n_use:]
+                if n_use:
+                    state = run_chunk(state, depths[:n_use], t0)
+                    frame += n_use
+                    t0 = time.monotonic()
+                    continue
+                # Fewer frames than a gate period left: per-frame tail.
+                scan_ok = False
+                depth_np = pending.pop(0)
             depth = kf.to_device(depth_np)
             # Pose logged at frame start = the previous frame's result
             # (reference: benchmark.cpp:127-131).
@@ -192,6 +312,14 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
             # (phase, state before, state after) for --debug-nans.
             written = []
             t1 = fence()
+            path = ("keyframes" if pgkf is not None else
+                    "fused" if fused else "phased")
+            # Never a bootstrap frame (forced integrate, no raycast before
+            # frame 3): an unrepresentative window.
+            tracing = (xprof is not None and xprof.wants(
+                ("frame", path, tuple(sorted(gates.items())))) and frame > 3)
+            if tracing:
+                xprof.start(1)
             if pgkf is not None:
                 before = state
                 state = pgkf.process_frame(state, depth, frame,
@@ -229,6 +357,8 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
                     state = kf.raycasting(state)
                 t5 = fence()
                 written.append(("raycasting", before, state))
+            if tracing:
+                xprof.stop()
             # Rendering (reference: benchmark.cpp:153-156).
             kf.render_depth_image(state)
             kf.render_track_image(state)
@@ -241,8 +371,7 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
                     check_nans(phase, frame, before, after)
             tracked = int(bool(state.tracked))
             integrated = int(bool(state.integrated))
-            print("%d\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f"
-                  "\t%.10f\t%.10f\t%.10f\t%d        \t%d"
+            print(ROW
                   % (frame, t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4,
                      t6 - t5, t5 - t1, t6 - t0, xt, yt, zt, tracked,
                      integrated),
@@ -274,6 +403,8 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
     finally:
         if logfile:
             logfile.close()
+    if xprof is not None:
+        xprof.report()
 
     if config.checkpoint_file:
         save_state(config.checkpoint_file, state, frame)
@@ -295,6 +426,100 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
     summary["state"] = state
     summary["kfusion"] = kf
     return summary
+
+
+def scan_chunk_ok(scan_chunk: int, gate_period: int, *, fused: bool,
+                  spans: bool, keyframes: bool, stats: bool, breaks: bool,
+                  debug_nans: bool) -> bool:
+    """Whether ``--scan-chunk`` batches this run (the JAX CLI's
+    ``scan_ok``, frontend/benchmark.py:187-210). A chunk has no
+    per-frame host view, so every flag that needs one turns it off, and
+    says so on stderr: a quiet downgrade would misattribute the numbers.
+    The port adds KERNEL_TIMINGS spans (a graph replay cannot re-time
+    them) and --debug-nans (it reads each phase's output)."""
+    if scan_chunk <= 1:
+        return False
+    reasons = []
+    if gate_period > scan_chunk:
+        reasons.append(f"gate period {gate_period} > chunk")
+    if not fused:
+        reasons.append("requires --fused or --mesh")
+    if spans:
+        reasons.append("KERNEL_TIMINGS spans")
+    if keyframes:
+        reasons.append("--keyframes")
+    if stats:
+        reasons.append("--stats")
+    if breaks:
+        reasons.append("breakpoint flags")
+    if debug_nans:
+        reasons.append("--debug-nans")
+    if reasons:
+        print(f"--scan-chunk {scan_chunk} disabled ({', '.join(reasons)});"
+              " running per-frame dispatch", file=sys.stderr)
+    return not reasons
+
+
+class XprofTrace:
+    """``KERNEL_TIMINGS=xprof``: a ``torch.profiler`` trace of one
+    dispatch whose signature already ran (the JAX CLI's route,
+    frontend/benchmark.py:137-166, 421-450), written as
+    ``kernels.trace.json`` into a new directory under ``$TMPDIR``; at the
+    end its device events go to stderr as ``name ns`` lines."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.seen: set = set()
+        self.dir: Optional[str] = None
+        self.frames = 0
+        self._prof = None
+
+    def wants(self, signature: tuple) -> bool:
+        """Trace this dispatch? Only the first repeat of a signature: a
+        first dispatch includes the CUDA graph's capture."""
+        want = self.dir is None and signature in self.seen
+        self.seen.add(signature)
+        return want
+
+    def start(self, frames: int) -> None:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self.dir = tempfile.mkdtemp(prefix="slambench_xprof_")
+        self.frames = frames
+        self._prof = profile(activities=acts)
+        self._prof.__enter__()
+
+    def stop(self) -> None:
+        self._prof.__exit__(None, None, None)
+        self._prof.export_chrome_trace(
+            os.path.join(self.dir, "kernels.trace.json"))
+        self._prof = None
+
+    def report(self, out=None) -> None:
+        """Print the trace's device events, or why there are none."""
+        out = sys.stderr if out is None else out
+        if self.dir is None:
+            print("xprof kernel attribution: no dispatch was traced — a "
+                  "trace only wraps a repeat of a dispatch signature that "
+                  "already ran (a first one includes the CUDA graph's "
+                  "capture); run more frames past the bootstrap/first "
+                  "chunk", file=out)
+            return
+        n = 0
+        for path in xprof2log.find_trace_files(self.dir):
+            for name, ns in xprof2log.kernel_events(
+                    xprof2log.load_trace(path), device_only=True):
+                print(f"{name} {ns:.0f}", file=out)
+                n += 1
+        if n:
+            print(f"xprof kernel attribution: {n} events over "
+                  f"{self.frames} frames ({self.dir})", file=out)
+        else:
+            print("xprof kernel attribution: no device lanes in trace "
+                  "(KERNEL_TIMINGS=xprof attributes device dispatches; on "
+                  "the CPU use KERNEL_TIMINGS=1)", file=out)
 
 
 def write_trajectories(pgkf: PoseGraphKFusion, base: str) -> None:
@@ -341,6 +566,7 @@ def main(argv=None) -> int:
     keyframes = flag("--keyframes")
     ba = flag("--ba")            # implies --keyframes
     break_at = value("--break-at-frame")
+    scan_chunk = int(value("--scan-chunk", "0"))
     device_name = value("--device", "cuda")
     try:
         device = resolve_device(device_name)
@@ -358,7 +584,8 @@ def main(argv=None) -> int:
         run(config, device, fused=fused, stats=stats,
             break_on_untracked=break_untracked,
             break_at_frame=None if break_at is None else int(break_at),
-            debug_nans=debug_nans, keyframes=keyframes, ba=ba)
+            debug_nans=debug_nans, keyframes=keyframes, ba=ba,
+            scan_chunk=scan_chunk)
     except NotImplementedError as exc:
         print(f"ERROR: {exc}", file=sys.stderr)
         return 2

@@ -37,6 +37,9 @@ from slambench_tpu_torch.utils.timers import NULL_SPAN
 # Kernel launches since the last reset (chip_smoke.py reads these).
 launches = 0          # bilateral_filter_cuda
 fused_launches = 0    # mm2m_bilateral_cuda
+# mm2m_bilateral_cuda calls recorded into a CUDA graph under capture: not
+# launches; each replay of the graph launches them (graphs.py tallies).
+fused_captured = 0
 
 
 def _lut(gaussian, r: int) -> np.ndarray:
@@ -97,7 +100,7 @@ def mm2m_bilateral_cuda(depth_mm: torch.Tensor, ratio: int, gaussian,
     """(float_depth, scaled_depth0) of an int32 millimetre frame read at
     stride ``ratio``: metres by IEEE division, and their bilateral
     filter, each ``ceil(in / ratio)`` per axis."""
-    global fused_launches
+    global fused_launches, fused_captured
     lut = _lut(gaussian, r)
     if depth_mm.dim() != 2 or depth_mm.dtype != torch.int32:
         raise ValueError(f"depth_mm must be a 2-D int32 tensor, got "
@@ -121,5 +124,8 @@ def mm2m_bilateral_cuda(depth_mm: torch.Tensor, ratio: int, gaussian,
         torch.cuda.current_stream(depth_mm.device).cuda_stream,
         *span.device_events())
     build.check(status, "mm2meters + bilateral kernel")
-    fused_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        fused_captured += 1
+    else:
+        fused_launches += 1
     return fd, sd

@@ -40,6 +40,9 @@ MAX_BLOCKS = 4 * 132
 # Kernel launches since the last reset (chip_smoke.py reads these).
 launches = 0          # reduce_track_cuda
 fused_launches = 0    # track_reduce_cuda
+# track_reduce_cuda calls recorded into a CUDA graph under capture: not
+# launches; each replay of the graph launches them (graphs.py tallies).
+fused_captured = 0
 
 # Per (device, stream): the [MAX_BLOCKS, 32] block partials and the
 # last-block ticket (left 0 by every launch). Allocated at first use.
@@ -128,7 +131,7 @@ def track_reduce_cuda(in_vertex: torch.Tensor,
     [h, w] int32). ``in_*`` are [3, h, w] level maps, ``ref_*`` [3, H, W]
     at full size, ``pose`` and ``view`` [4, 4]; all float32 on one
     device. Nothing is read back to the host."""
-    global fused_launches
+    global fused_launches, fused_captured
     tensors = (in_vertex, in_normal, ref_vertex, ref_normal, pose, view)
     if any(t.dtype != torch.float32 for t in tensors):
         raise ValueError("dtypes must all be float32, got "
@@ -162,5 +165,8 @@ def track_reduce_cuda(in_vertex: torch.Tensor,
         out.data_ptr(), n, H, W, dist_threshold, normal_threshold,
         grid_blocks(n), MAX_BLOCKS, stream, *span.device_events())
     build.check(status, "track_reduce kernel")
-    fused_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        fused_captured += 1
+    else:
+        fused_launches += 1
     return out, result

@@ -9,7 +9,7 @@ ported; on the H100 this op becomes the hand kernel K3 in a later change.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,14 +25,19 @@ def integrate(tsdf: torch.Tensor,
               K: torch.Tensor,
               mu: float,
               max_weight: float = params.MAX_WEIGHT,
-              dim: Dim3 = (2.0, 2.0, 2.0)) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
+              dim: Dim3 = (2.0, 2.0, 2.0),
+              gate: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor,
+                                                            torch.Tensor]:
     """Fuse one depth frame into the TSDF; returns new (tsdf, weight).
 
     Per voxel: skip if camera z < 1e-4, the projection falls outside the
     image, or depth == 0; else diff = (depth - z) * norm_correction and,
     if diff > -mu, value <- clamp((w*v + min(1, diff/mu)) / (w+1), -1, 1),
-    w <- min(w + 1, maxweight)."""
+    w <- min(w + 1, maxweight).
+
+    ``gate`` (a 0-d bool tensor) is the device-side counterpart of JAX's
+    ``lax.cond`` around the update: it joins the voxel mask, so where it
+    is false no voxel changes and the host reads nothing."""
     H, W = depth.shape
     sz, sy, sx = tsdf.shape
     dev = tsdf.device
@@ -64,6 +69,8 @@ def integrate(tsdf: torch.Tensor,
     diff = (d - cz) * corr
 
     update = in_front & in_img & (d != 0) & (diff > -mu)
+    if gate is not None:
+        update = update & gate
 
     sdf = torch.clamp(diff / mu, max=1.0)
     w = weight.to(torch.float32)

@@ -65,8 +65,8 @@ def ray_box_clip(origin: torch.Tensor, direction: torch.Tensor, dim: Dim3,
 
 
 def masked_march(sample, tnear: torch.Tensor, tfar: torch.Tensor,
-                 step: float, large_step: float, max_iters: int
-                 ) -> torch.Tensor:
+                 step: float, large_step: float, max_iters: int,
+                 early_exit: bool = True) -> torch.Tensor:
     """Lockstep two-speed march to the TSDF zero crossing; returns
     ``t_hit`` (0 where no hit).
 
@@ -76,6 +76,9 @@ def masked_march(sample, tnear: torch.Tensor, tfar: torch.Tensor,
     gives no hit; on ``f_tt < 0`` refine to ``t + stepsize * f_tt /
     (f_t - f_tt)`` with the step size from before the update. At most
     ``max_iters`` iterations, as in the JAX ``while_loop``.
+    ``early_exit=False`` runs all ``max_iters`` iterations with no host
+    read (the CUDA graph route): every write is gated by ``live``, so a
+    done ray does not change and the result is the same bits.
     """
     f_t = sample(tnear)
     done = ~((tnear < tfar) & (f_t > 0))
@@ -83,8 +86,9 @@ def masked_march(sample, tnear: torch.Tensor, tfar: torch.Tensor,
     stepsize = torch.full_like(tnear, large_step)
     t_hit = torch.zeros_like(tnear)
     iters = 0
-    while iters < max_iters and bool((~done).any()):
-        for _ in range(min(MARCH_CHECK_EVERY, max_iters - iters)):
+    while iters < max_iters and (not early_exit or bool((~done).any())):
+        n = min(MARCH_CHECK_EVERY, max_iters - iters)
+        for _ in range(n):
             f_tt = sample(t)
             live = ~done
             is_hit = live & (f_tt < 0.0)
@@ -96,17 +100,18 @@ def masked_march(sample, tnear: torch.Tensor, tfar: torch.Tensor,
             f_t = torch.where(cont, f_tt, f_t)
             t = torch.where(cont, t + new_step, t)
             done = done | is_hit | (cont & (t >= tfar))
-        iters += MARCH_CHECK_EVERY
+        iters += n
     return t_hit
 
 
 def raycast(tsdf: torch.Tensor, dim: Dim3, view: torch.Tensor,
             image_size: Tuple[int, int], near_plane: float, far_plane: float,
-            step: float, large_step: float
+            step: float, large_step: float, early_exit: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """March every ray of the virtual camera ``view`` (``pose @ K^-1``)
     through the TSDF: hit positions [3, H, W] (0 where no hit) and hit
-    distances [H, W] (> 0 marks a hit)."""
+    distances [H, W] (> 0 marks a hit). ``early_exit`` as in
+    ``masked_march``."""
     origin, direction = camera_rays(view, image_size)
     o = origin.reshape(3, 1, 1)
     tnear, tfar = ray_box_clip(origin, direction, dim, near_plane, far_plane)
@@ -116,7 +121,8 @@ def raycast(tsdf: torch.Tensor, dim: Dim3, view: torch.Tensor,
 
     # Worst case: the whole clip range at the fine step.
     max_iters = int((far_plane - near_plane) / step) + 2
-    t_hit = masked_march(sample, tnear, tfar, step, large_step, max_iters)
+    t_hit = masked_march(sample, tnear, tfar, step, large_step, max_iters,
+                         early_exit)
     hit_pos = o + direction * t_hit[None]
     hit_pos = torch.where(t_hit[None] > 0, hit_pos, torch.zeros_like(hit_pos))
     return hit_pos, t_hit
@@ -126,14 +132,15 @@ def raycast_maps(tsdf: torch.Tensor, dim: Dim3, view: torch.Tensor,
                  image_size: Tuple[int, int],
                  near_plane: float = params.NEAR_PLANE,
                  far_plane: float = params.FAR_PLANE,
-                 step: float = 0.0078125, large_step: float = 0.075
+                 step: float = 0.0078125, large_step: float = 0.075,
+                 early_exit: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``raycastKernel`` (cpp/kernels.cpp:726-757):
     vertex and normal maps; on a hit the normal is the normalised TSDF
     gradient (INVALID where it vanishes), on a miss vertex 0 and normal
-    (INVALID, 0, 0)."""
+    (INVALID, 0, 0). ``early_exit`` as in ``masked_march``."""
     hit_pos, t_hit = raycast(tsdf, dim, view, image_size, near_plane,
-                             far_plane, step, large_step)
+                             far_plane, step, large_step, early_exit)
     g = grad(tsdf, dim, hit_pos)
     hit = t_hit > 0
     invalid = torch.zeros_like(g)

@@ -12,7 +12,11 @@ gather table.
 
 The march budget is the JAX default path's: ``MARCH_PHASE1`` substeps
 plus ``max_iters`` rounded up to ``MARCH_UNROLL``, with the "any ray
-live" test every ``MARCH_UNROLL`` substeps.
+live" test every ``MARCH_UNROLL`` substeps. With ``early_exit=False``
+the march runs the whole budget and reads nothing on the host (the CUDA
+graph route, ``graphs.py``): a finished ray is frozen by its masks, so
+both modes give the same bits. ``march_calls`` and ``march_substeps``
+count the marches and the substeps they ran.
 """
 
 from __future__ import annotations
@@ -33,6 +37,11 @@ MARCH_UNROLL = 4
 MARCH_PHASE1 = 24
 RAYCAST_NSCAN = 4
 RAYCAST_REFINE_ITERS = 2
+
+# Marches and substeps run since the last reset (chip_smoke.py reads
+# them to report how far the early exit cuts the budget).
+march_calls = 0
+march_substeps = 0
 
 
 def _min_pool_axis(x: torch.Tensor, axis: int, win: int, stride: int,
@@ -75,10 +84,14 @@ def make_skip_mip(mip: torch.Tensor) -> torch.Tensor:
 
 def mip_march(sample_t, dist_exit_t, tnear: torch.Tensor,
               tfar: torch.Tensor, step: float, large_step: float,
-              budget: int) -> dict:
+              budget: int, early_exit: bool = True) -> dict:
     """The skip-table nearest-sample march (JAX ``mip_march``): same
     masked substep, run ``MARCH_UNROLL`` substeps at a time while any
-    ray is live, up to ``budget`` substeps."""
+    ray is live, up to ``budget`` substeps. ``early_exit=False`` runs
+    all ``budget`` substeps with no host read; every write is gated by
+    ``cont = live & ~is_hit``, so a done ray does not change and the
+    result is the early-exit march's, bit for bit."""
+    global march_calls, march_substeps
     f_t0, _ = sample_t(tnear)
     marching = (tnear < tfar) & (f_t0 > 0)
     s = dict(t=tnear, t_prev=tnear, f_prev=f_t0,
@@ -107,10 +120,12 @@ def mip_march(sample_t, dist_exit_t, tnear: torch.Tensor,
             hit=hit)
 
     iters = 0
-    while iters < budget and bool((~s["done"]).any()):
+    while iters < budget and (not early_exit or bool((~s["done"]).any())):
         for _ in range(MARCH_UNROLL):
             s = substep(s)
         iters += MARCH_UNROLL
+    march_calls += 1
+    march_substeps += iters
     return s
 
 
@@ -161,13 +176,15 @@ def rescan_refine(tri_t, tri_batch, out: dict, step: float) -> torch.Tensor:
 def raycast_fast(tsdf: torch.Tensor, mip: torch.Tensor, dim: Dim3,
                  view: torch.Tensor, image_size: Tuple[int, int],
                  near_plane: float, far_plane: float, step: float,
-                 large_step: float, t_init: Optional[torch.Tensor] = None
+                 large_step: float, t_init: Optional[torch.Tensor] = None,
+                 early_exit: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hit positions [3, H, W] (0 where no hit) and hit distances.
 
     ``t_init`` (optional, [H, W]) is a per-ray lower bound on the hit
     distance, the temporal warm start (``warm_start_bound``): marching
-    starts at ``max(tnear, t_init)``, capped at ``tfar``."""
+    starts at ``max(tnear, t_init)``, capped at ``tfar``.
+    ``early_exit`` as in ``mip_march``."""
     m = MIP_BLOCK
     sz, sy, sx = tsdf.shape
     dev = tsdf.device
@@ -225,7 +242,7 @@ def raycast_fast(tsdf: torch.Tensor, mip: torch.Tensor, dim: Dim3,
         + int((far_plane - near_plane) / large_step) + 16
     budget = MARCH_PHASE1 + -(-max_iters // MARCH_UNROLL) * MARCH_UNROLL
     out = mip_march(sample_t, dist_exit_t, tnear, tfar, step, large_step,
-                    budget)
+                    budget, early_exit)
     t_hit = rescan_refine(tri_t, tri_batch, out, step)
     hit_pos = o + direction * t_hit[None]
     hit_pos = torch.where(t_hit[None] > 0, hit_pos, torch.zeros_like(hit_pos))
@@ -259,7 +276,8 @@ def warm_start_bound(prev_t_hit: torch.Tensor, pose_delta: torch.Tensor,
     guarded = torch.where(prev_t_hit > 0, prev_t_hit,
                           torch.zeros_like(prev_t_hit))
     pooled = guarded.reshape(H // pool, pool, W // pool, pool).amin((1, 3))
-    up = pooled.repeat_interleave(pool, 0).repeat_interleave(pool, 1)
+    up = pooled[:, None, :, None].expand(H // pool, pool, W // pool,
+                                         pool).reshape(H, W)
     return torch.clamp(up - margin, min=0.0)
 
 
@@ -268,14 +286,15 @@ def raycast_fast_maps(tsdf: torch.Tensor, mip: torch.Tensor, dim: Dim3,
                       near_plane: float = params.NEAR_PLANE,
                       far_plane: float = params.FAR_PLANE,
                       step: float = 0.0078125, large_step: float = 0.075,
-                      t_init: Optional[torch.Tensor] = None
+                      t_init: Optional[torch.Tensor] = None,
+                      early_exit: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Vertex + normal reference maps and the hit-distance map
-    (reference: cpp/kernels.cpp:726-757); ``t_init`` as in
-    ``raycast_fast``."""
+    (reference: cpp/kernels.cpp:726-757); ``t_init`` and ``early_exit``
+    as in ``raycast_fast``."""
     hit_pos, t_hit = raycast_fast(tsdf, mip, dim, view, image_size,
                                   near_plane, far_plane, step, large_step,
-                                  t_init)
+                                  t_init, early_exit)
     g = grad(tsdf, dim, hit_pos)
     glen = length3(g)
     normal = normalize3(g)

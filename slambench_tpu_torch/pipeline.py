@@ -21,6 +21,14 @@ previous raycast's warm-start bound (``warm_start_bound``; off by
 default, as in JAX). The render methods give the reference's three
 diagnostic images.
 
+``scan_step`` is the frame step with static gates and no host read:
+the integration gate stays on the device (``integration(on_device=
+True)``, JAX's ``lax.cond`` as a voxel mask) and the raycast marches its
+whole budget. ``compute_frames_scan`` and ``compute_frames_scan_rated``
+run it over a batch of frames (JAX's ``lax.scan`` routes): on the card
+as replays of a CUDA graph of one gate period (``graphs.py``), on the
+CPU as a plain loop.
+
 The ICP loop runs each level's fixed iteration budget with no host read:
 a level that converges freezes its pose, reduction and result codes from
 the converging iteration on (the JAX ``while_loop`` applies the update of
@@ -39,13 +47,14 @@ integrate, the min-mip, the raycast and each render.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
-from slambench_tpu_torch import params
+from slambench_tpu_torch import graphs, params
 from slambench_tpu_torch.geometry import (
     get_camera_matrix, get_inverse_camera_matrix, mat4mul, rigid_inverse,
     se3_exp, se3_log, translation_pose,
@@ -159,6 +168,7 @@ class KFusion:
         self._k = torch.tensor(self.camera, dtype=torch.float32,
                                device=self.device)
         self.timings = KernelTimings(self.device)
+        self.graphs = graphs.ScanGraphs(self)
 
     # ------------------------------------------------------------------ #
 
@@ -268,45 +278,54 @@ class KFusion:
                                        device=self.device))
 
     def integration(self, state: KFusionState, *, integrate_frame: bool,
-                    force_integrate: bool) -> KFusionState:
+                    force_integrate: bool, on_device: bool = False
+                    ) -> KFusionState:
         """TSDF fusion gated on pose acceptance and the integration rate
         (reference: cpp/kernels.cpp:988-1004). The accept flag is read on
-        the host only when the gates leave it to decide."""
+        the host only when the gates leave it to decide, and the update
+        is skipped when it is off. With ``on_device`` the gate stays a 0-d
+        bool tensor (JAX's ``lax.cond``): it masks the voxel update, the
+        min-mip is rebuilt from the (maybe unchanged) TSDF, and the host
+        reads nothing."""
         pose, ok = check_pose(state.pose, state.old_pose, state.reduction,
                               (self.H, self.W))
-        if force_integrate:
-            should = True
-        elif not integrate_frame:
-            should = False
-        else:
-            should = bool(ok)
         tsdf, weight, mip = state.tsdf, state.weight, state.mip
-        if should:
+        if on_device:
+            should = (ok & integrate_frame) | force_integrate
+        else:
+            should = force_integrate or (integrate_frame and bool(ok))
+        if on_device or should:
             with self.timings.span("integrate", tsdf.numel()):
                 tsdf, weight = integrate(
                     tsdf, weight, state.float_depth, rigid_inverse(pose),
                     get_camera_matrix(self._k), self.mu, params.MAX_WEIGHT,
-                    self.volume_dimensions)
+                    self.volume_dimensions,
+                    gate=should if on_device else None)
             with self.timings.span("minMip", tsdf.numel()):
                 mip = make_min_mip(tsdf)
+        if not on_device:
+            should = torch.full((), should, dtype=torch.bool,
+                                device=self.device)
         return dataclasses.replace(
             state, pose=pose, tsdf=tsdf, weight=weight, mip=mip,
-            integrated=torch.full((), should, dtype=torch.bool,
-                                  device=self.device))
+            integrated=should)
 
-    def raycasting(self, state: KFusionState) -> KFusionState:
+    def raycasting(self, state: KFusionState, *, early_exit: bool = True
+                   ) -> KFusionState:
         """Surface prediction from the current pose
         (reference: cpp/kernels.cpp:973-986). The oracle march keeps no
         hit distances: ``prev_t_hit`` holds zeros, as in JAX. With the
         warm start on, the min-mip march starts at the bound that the
-        previous hit distances and the motion since that raycast give."""
+        previous hit distances and the motion since that raycast give.
+        ``early_exit=False`` marches the whole budget with no host read
+        (the same bits, ``ops/raycast_fast.py:mip_march``)."""
         view = mat4mul(state.pose, get_inverse_camera_matrix(self._k))
         with self.timings.span("raycast", self.H * self.W):
             if self.backend == "jnp":
                 vertex, normal = raycast_maps(
                     state.tsdf, self.volume_dimensions, view,
                     (self.H, self.W), params.NEAR_PLANE, params.FAR_PLANE,
-                    self.step, 0.75 * self.mu)
+                    self.step, 0.75 * self.mu, early_exit=early_exit)
                 t_hit = torch.zeros((self.H, self.W), dtype=torch.float32,
                                     device=self.device)
             else:
@@ -320,7 +339,8 @@ class KFusion:
                 vertex, normal, t_hit = raycast_fast_maps(
                     state.tsdf, state.mip, self.volume_dimensions, view,
                     (self.H, self.W), params.NEAR_PLANE, params.FAR_PLANE,
-                    self.step, 0.75 * self.mu, t_init=t_init)
+                    self.step, 0.75 * self.mu, t_init=t_init,
+                    early_exit=early_exit)
         return dataclasses.replace(
             state, raycast_pose=state.pose, ref_vertex=vertex,
             ref_normal=normal, prev_t_hit=t_hit)
@@ -339,6 +359,74 @@ class KFusion:
         if raycast_on:
             state = self.raycasting(state)
         return state
+
+    def scan_step(self, state: KFusionState, input_depth: torch.Tensor, *,
+                  tracking_on: bool = True, integrate_frame: bool = True,
+                  force_integrate: bool = False, raycast_on: bool = True
+                  ) -> KFusionState:
+        """``compute_frame`` with no host read: the integration gate on the
+        device and the full-budget march (JAX's ``_scan_step``). The body
+        of the batched routes and of their CUDA graph; it gives the same
+        state as ``compute_frame`` with the same gates."""
+        state = self.preprocessing(state, input_depth)
+        state = self.tracking(state) if tracking_on \
+            else self.skip_tracking(state)
+        state = self.integration(state, integrate_frame=integrate_frame,
+                                 force_integrate=force_integrate,
+                                 on_device=True)
+        if raycast_on:
+            state = self.raycasting(state, early_exit=False)
+        return state
+
+    def compute_frames_scan(self, state: KFusionState, depths
+                            ) -> Tuple[KFusionState, dict]:
+        """Steady-state frames ``depths [N, H, W]`` (uint16 mm, numpy or
+        tensor) in order, each with the ``-r 1`` gates past frame 3
+        (tracking and integration on, no forced integrate, raycast on):
+        JAX's ``compute_frames_scan``. Returns the state and
+        ``{"pos": [N, 3], "tracked": [N], "integrated": [N]}`` on the
+        device, ``pos`` the pose translation after each frame (not
+        relative to the initial pose)."""
+        depths = self.to_device(depths)
+        if depths.dim() != 3:
+            raise ValueError(f"depths must be [N, H, W], got "
+                             f"{tuple(depths.shape)}")
+        return self._scan(state, depths[:, None], ((True, True),))
+
+    def compute_frames_scan_rated(self, state: KFusionState, depths, *,
+                                  tracking_rate: int, integration_rate: int,
+                                  phase: int) -> Tuple[KFusionState, dict]:
+        """Rate-gated frames ``depths [K, L, H, W]``, ``L`` the gate
+        period ``lcm(tracking_rate, integration_rate)``: frame ``i`` of a
+        block runs with the gates of frame ``phase + i`` (JAX's
+        ``compute_frames_scan_rated``). Outputs as in
+        ``compute_frames_scan``, flattened frame-major to ``K * L``."""
+        period = math.lcm(tracking_rate, integration_rate)
+        depths = self.to_device(depths)
+        if depths.dim() != 4 or depths.shape[1] != period:
+            raise ValueError(f"depths must be [K, {period}, H, W] for the "
+                             f"gate period {period}, got "
+                             f"{tuple(depths.shape)}")
+        gates = tuple((f % tracking_rate == 0, f % integration_rate == 0)
+                      for f in range(phase, phase + period))
+        return self._scan(state, depths, gates)
+
+    def _scan(self, state: KFusionState, depths: torch.Tensor,
+              gates: tuple) -> Tuple[KFusionState, dict]:
+        """``depths [K, L, H, W]`` through ``scan_step`` with the period's
+        ``(tracking_on, integrate_frame)`` gates: a replayed CUDA graph
+        on the card, a loop on the CPU."""
+        if self.device.type == "cuda":
+            state, rows = self.graphs.run(state, depths, gates)
+        else:
+            out = []
+            for block in depths:
+                for depth, (track_on, integ) in zip(block, gates):
+                    state = self.scan_step(state, depth, tracking_on=track_on,
+                                           integrate_frame=integ)
+                    out.append(graphs.scan_row(state))
+            rows = torch.stack(out)
+        return state, graphs.unpack_rows(rows)
 
     def process_frame(self, state: KFusionState, input_depth, frame: int,
                       tracking_rate: int = 1, integration_rate: int = 2

@@ -19,8 +19,10 @@ two events right around the launch (``device_events``), so those spans
 hold the kernel and the launch's own latency, not the wrapper's host
 work. Event pairs are kept in a pool and reused after each flush.
 
-With the variable unset a span is a shared no-op context
-(``NULL_SPAN``): nothing is recorded and nothing is printed.
+With the variable unset, or set to ``xprof`` (the device-trace route of
+``frontend/benchmark.py``, which times no span), a span is a shared
+no-op context (``NULL_SPAN``): nothing is recorded and nothing is
+printed.
 """
 
 from __future__ import annotations
@@ -31,6 +33,18 @@ import time
 from typing import List, Tuple
 
 import torch
+
+
+def spans_enabled() -> bool:
+    """KERNEL_TIMINGS is set to a value that asks for spans: anything but
+    empty and ``xprof``."""
+    value = os.environ.get("KERNEL_TIMINGS", "")
+    return bool(value) and value.lower() != "xprof"
+
+
+def xprof_enabled() -> bool:
+    """KERNEL_TIMINGS=xprof: the device-trace route."""
+    return os.environ.get("KERNEL_TIMINGS", "").lower() == "xprof"
 
 
 class _NullSpan:
@@ -58,7 +72,7 @@ class KernelTimings:
 
     def __init__(self, device: torch.device):
         # The reference's env gate (cpp/kernels.cpp:69-70).
-        self.enabled = bool(os.environ.get("KERNEL_TIMINGS"))
+        self.enabled = spans_enabled()
         self._cuda = torch.device(device).type == "cuda"
         self._spans: List[Tuple[str, int, object, object]] = []
         self._free: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []

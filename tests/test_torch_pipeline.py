@@ -194,13 +194,12 @@ def test_backend_names_and_unported_paths(dataset):
     from slambench_tpu_torch.frontend.benchmark import (
         NOT_PORTED_FLAGS, main,
     )
-    assert set(NOT_PORTED_FLAGS) == {"--scan-chunk"}
-    for flag in NOT_PORTED_FLAGS:
-        assert main([flag, "4", "-i", "x.raw"]) == 2, flag
-    # The keyframe flags are accepted and consumed: the command line then
-    # fails only on the missing input (exit 1), not as refused (2) or as
-    # an unknown option (0).
-    for flags in (["--keyframes"], ["--ba"], ["--keyframes", "--ba"]):
+    assert NOT_PORTED_FLAGS == ()
+    # The keyframe flags and --scan-chunk N are accepted and consumed: the
+    # command line then fails only on the missing input (exit 1), not as
+    # refused (2) or as an unknown option (0).
+    for flags in (["--keyframes"], ["--ba"], ["--keyframes", "--ba"],
+                  ["--fused", "--scan-chunk", "4"]):
         with pytest.raises(SystemExit) as exc:
             main(["--device", "cpu", *flags, "-i", "x.raw"])
         assert exc.value.code == 1, flags
