@@ -28,7 +28,12 @@ no ``ok`` line):
    (result codes equal, the reduction within tolerance, two calls bit for
    bit), timed as one CUDA-event pair around back-to-back launches
    (``tools/timing.py``); G1-G4 in every mode at the gather probes'
-   shapes, which must agree exactly;
+   shapes, and G1 and G2 on the redesigned kernels' edge cases
+   (``tools/gather_probe.py:edge_cases``: misaligned indices, 1, 3 and
+   4k+3 lookups, clamping with indices below -n, in [-n, 0) and at or
+   above n, tables that do not divide G2's bands or its cluster's split,
+   the full 232,448-byte table) and 50 G2 flat launches back to back,
+   which must all agree exactly;
 4. main path — synthesise the traj2-like clip on the card, run the
    port's CLI ``run()`` phased at 256^3 / 4.8 m / 320x240 / pyramid
    10,5,4 / -r 1 / -z 4, check the ATE with the port's check_pos, the
@@ -104,6 +109,8 @@ no ``ok`` line):
    counterpart of the TPU tool that held the Pallas gathers P1-P3, and
    ``tools/gather_probe.py``) at their full shapes; every entry must
    agree with its plain twin and every kernel's launch count must move;
+   an empty kernel's time (``tools/k1_split.py`` mode 0) is the floor
+   printed beside the rows;
 11. report — one JSON line of kernel results (time, plain and library
    time, bound, launches), the nvidia-smi line, and the final
    ``{"ok": true, ...}`` line.
@@ -453,6 +460,7 @@ def phase_gathers(dev: torch.device) -> dict:
     """G1-G4 against their plain twins, in every mode, at the gather
     probes' shapes; a gather copies, so the results must be equal."""
     from slambench_tpu_torch.ops.hopper import gather as g
+    from slambench_tpu_torch.tools.gather_probe import edge_cases
 
     log("  G1-G4 vs their plain twins (must be equal)")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -494,11 +502,22 @@ def phase_gathers(dev: torch.device) -> dict:
     vol = ri(-32766, 32767, (256 ** 3,)).to(torch.int16)
     for n in (76_800, 256 ** 3):
         inside = ri(0, vol.numel(), (n,))
-        outside = ri(-1000, vol.numel() + 1000, (n,))
+        outside = ri(-vol.numel() - 1000, vol.numel() + 1000, (n,))
         same(f"G1 int16 volume {n} in range", g.gather_flat(vol, inside),
              g.gather_flat_plain(vol, inside))
         same(f"G1 int16 volume {n} clip", g.gather_flat(vol, outside, True),
              g.gather_flat_plain(vol, outside, True))
+    cases = edge_cases(dev)
+    for name, kernel, twin in cases:
+        same(name, kernel(), twin())
+    flat_i = ri(0, t.numel(), (256, 128))
+    want = g.gather_axis_plain(t, flat_i, "flat")
+    outs = [g.gather_axis_smem(t, flat_i, "flat") for _ in range(50)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(o, want) for o in outs):
+        raise RuntimeError("G2 flat: 50 back-to-back launches differ")
+    log(f"    {len(cases)} edge cases of G1 and G2 equal; 50 G2 flat "
+        f"launches back to back equal")
     return {k: 0.0 for k in g.launches}
 
 
@@ -1695,7 +1714,7 @@ def phase_keyframes(dev: torch.device, work: str, main: dict) -> dict:
 
 def phase_probes(dev: torch.device) -> dict:
     from slambench_tpu_torch.ops.hopper import bilateral, gather, reduce
-    from slambench_tpu_torch.tools import gather_probe, mosaic_probe
+    from slambench_tpu_torch.tools import gather_probe, k1_split, mosaic_probe
 
     log("[10/11 probe path] tools/mosaic_probe.py and tools/gather_probe.py "
         "at full shapes")
@@ -1719,6 +1738,10 @@ def phase_probes(dev: torch.device) -> dict:
     log(f"  every entry agrees; launches {launches}; "
         f"{time.monotonic() - t0:.2f} s")
     result["launches"] = launches
+    # The floor under every row: an empty kernel on a 240x320 grid.
+    result["empty_kernel"] = k1_split.empty_kernel_ms(dev)
+    log(f"  empty kernel (tools/k1_split.py mode 0, 240x320 grid): "
+        f"{result['empty_kernel']['ms'] * 1e3:.3f} us a launch")
     return result
 
 
@@ -1828,6 +1851,9 @@ def main() -> int:
             "bound_ms": bound_ms(e["bytes"], e["ops"]),
             "bound_by": bound_by(e["bytes"], e["ops"]),
             "library_ms": e["library_ns_per_elem"] * per_ms})
+        if e.get("l2_sector_bytes"):
+            rows[-1].update(l2_sector_bytes=e["l2_sector_bytes"],
+                            l2_sector_tb_per_s=e["l2_sector_tb_per_s"])
     probes = {f"{tool}.{k}": [v["count"], v["ns_per_elem"],
                               v["library_ns_per_elem"],
                               v["bound_ns_per_elem"], v["host_bound"]]
@@ -1844,6 +1870,7 @@ def main() -> int:
                     "k2f_by_shape": k2f["by_shape"]}))
     log("probe entries [count, ns/elem, library ns/elem, bound ns/elem, "
         "host-paced]: " + json.dumps(probes))
+    log(f"empty kernel: {json.dumps(pr['empty_kernel'])}")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

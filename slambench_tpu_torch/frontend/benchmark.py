@@ -340,10 +340,10 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
                 t2 = fence()
                 written.append(("preprocessing", before, state))
                 before = state
+                # A frame the tracking rate skips leaves the state alone,
+                # as JAX's phased CLI does: its row repeats ``tracked``.
                 if gates["tracking_on"]:
                     state = kf.tracking(state)
-                else:
-                    state = kf.skip_tracking(state)
                 t3 = fence()
                 written.append(("tracking", before, state))
                 before = state

@@ -26,6 +26,7 @@ import torch
 from slambench_tpu_torch.geometry import (
     mat4mul, rigid_inverse, se3_exp, se3_log,
 )
+from slambench_tpu_torch.policy import resolve_device
 
 _F32 = torch.float32
 
@@ -126,12 +127,14 @@ class PoseGraph:
     """Host-side pose graph: grows keyframe poses and edges as
     numpy arrays and optimizes them on ``device``. The edge buffer is
     padded to the next power of two (unused slots weigh zero), as in the
-    JAX package, where it bounds recompilation."""
+    JAX package, where it bounds recompilation. ``device`` defaults to
+    the card, as JAX's optimizes on its default device; without a card
+    it raises (``policy.resolve_device``)."""
 
-    def __init__(self, device: torch.device = torch.device("cpu")):
+    def __init__(self, device="cuda"):
         self.poses: list = []
         self.edges: list = []       # (i, j, T_ij 4x4, weight)
-        self.device = torch.device(device)
+        self.device = resolve_device(str(device))
 
     def add_pose(self, pose: np.ndarray) -> int:
         self.poses.append(np.asarray(pose, np.float32))

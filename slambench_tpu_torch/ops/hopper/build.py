@@ -75,7 +75,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                          vp, ci, ci, ci, cf, cf, ci, ci, vp,
                                          vp, vp]
     lib.slb_track_reduce_f32.restype = ci
-    lib.slb_gather_flat.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp]
+    lib.slb_gather_flat.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, vp]
     lib.slb_gather_flat.restype = ci
     lib.slb_gather_axis_smem_f32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
                                              ci, vp]
@@ -128,6 +128,31 @@ def build() -> str:
                            f"{' '.join(failed[0])}\n{build_log}")
     os.replace(tmp, out)
     return out
+
+
+def build_variants(sources: dict, prefix: str) -> dict:
+    """Compile each ``{name: CUDA source}`` into a shared library of its
+    own under ``_build/`` (one ``nvcc`` process each, all started
+    together), for the tools that time copies of a kernel changed in one
+    place; returns ``{name: CDLL}``, unbound."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc, jobs = find_nvcc(), {}
+    for name, src in sources.items():
+        digest = hashlib.sha256(src.encode()).hexdigest()[:16]
+        cu = os.path.join(BUILD_DIR, f"{prefix}_{digest}.cu")
+        path = os.path.join(BUILD_DIR, f"lib{prefix}_{digest}.so")
+        with open(cu, "w") as f:
+            f.write(src)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", path, cu]
+        jobs[name] = (cmd, path, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (cmd, path, proc) in jobs.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out}")
+        libs[name] = ctypes.CDLL(path)
+    return libs
 
 
 def load() -> ctypes.CDLL:

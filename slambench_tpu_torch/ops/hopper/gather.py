@@ -6,13 +6,15 @@ and serve the port's gather probes (``tools/mosaic_probe.py``,
 ``tools/gather_probe.py``):
 
 * G1 ``gather_flat``: ``out = table.ravel()[idx]`` from device memory,
-  f32 / int16 / uint16 tables widened to f32; ``clamp`` clamps the index
-  to ``[0, n - 1]``, as JAX's ``mode="clip"`` does for indices >= n or
-  < -n (JAX first wraps an index in ``[-n, 0)`` NumPy-style; the kernel
-  gives 0 there, as ``torch.clamp``); without it the indices must be in
-  range, as ``promise_in_bounds``;
-* G2 ``gather_axis_smem``: the f32 table staged whole in shared memory,
-  then a flat, lane (``axis=1``) or sublane (``axis=0``) gather;
+  f32 / int16 / uint16 tables widened to f32, several lookups a thread;
+  ``clamp`` does what JAX's ``mode="clip"`` does: an index in ``[-n, 0)``
+  first becomes ``idx + n`` (NumPy-style), then the index is clipped to
+  ``[0, n - 1]``; without it the indices must be in range, as
+  ``promise_in_bounds``;
+* G2 ``gather_axis_smem``: a flat, lane (``axis=1``) or sublane
+  (``axis=0``) gather from an f32 table staged in shared memory: each
+  block stages only what its outputs read (flat: a share of the table
+  per block of a thread-block cluster, read across the cluster);
 * G3 ``gather_smem_u16``: the uint16 millimetre image staged in shared
   memory, each lookup converted to metres by IEEE division, as the JAX
   package's ``mm2meters`` (``ops/preprocess.py:mm_to_meters``);
@@ -54,7 +56,8 @@ def gather_flat_plain(table: torch.Tensor, idx: torch.Tensor,
         # index uint16 on the card.
         flat = flat.to(torch.float32)
     if clamp:
-        idx = idx.clamp(0, flat.numel() - 1)
+        n = flat.numel()
+        idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
     return flat[idx]
 
 
@@ -110,6 +113,19 @@ def _sm_count(t: torch.Tensor) -> int:
     return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
+def _output_like(idx: torch.Tensor) -> torch.Tensor:
+    """An f32 output of ``idx``'s shape at ``idx``'s offset within 16
+    bytes, so that G1 and G2 serve both with 16-byte accesses when
+    ``idx`` is a slice that does not start on 16 bytes."""
+    shift = idx.data_ptr() % 16 // 4
+    if shift == 0:
+        return torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
+    buf = torch.empty(idx.numel() + 3, dtype=torch.float32,
+                      device=idx.device)
+    start = (shift - buf.data_ptr() % 16 // 4) % 4
+    return buf[start:start + idx.numel()].view(idx.shape)
+
+
 # ------------------------------- wrappers ----------------------------- #
 
 def gather_flat(table: torch.Tensor, idx: torch.Tensor,
@@ -117,12 +133,12 @@ def gather_flat(table: torch.Tensor, idx: torch.Tensor,
     """G1: f32 ``table.ravel()[idx]`` of any table shape."""
     if _check(table, TABLE_TYPES, idx) == "cpu":
         return gather_flat_plain(table, idx, clamp)
-    out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
+    out = _output_like(idx)
     if idx.numel():
         status = build.load().slb_gather_flat(
             table.data_ptr(), TABLE_TYPES[table.dtype], idx.data_ptr(),
             out.data_ptr(), idx.numel(), table.numel(), int(clamp),
-            _stream(idx))
+            _sm_count(idx), _stream(idx))
         build.check(status, "gather_flat kernel")
         launches["gather_flat"] += 1
     return out
@@ -130,9 +146,10 @@ def gather_flat(table: torch.Tensor, idx: torch.Tensor,
 
 def gather_axis_smem(table: torch.Tensor, idx: torch.Tensor,
                      mode: str) -> torch.Tensor:
-    """G2: the f32 [rows, cols] table in shared memory; ``mode`` "flat"
-    (``take(t.ravel(), i)``), "lane" (``take_along_axis(t, i, 1)``) or
-    "sublane" (``take_along_axis(t, i, 0)``)."""
+    """G2: the f32 [rows, cols] table staged in shared memory; ``mode``
+    "flat" (``take(t.ravel(), i)``), "lane" (``take_along_axis(t, i, 1)``)
+    or "sublane" (``take_along_axis(t, i, 0)``). Indices are clamped into
+    the table (a negative one to 0)."""
     if mode not in AXIS_MODES:
         raise ValueError(f"mode must be one of {list(AXIS_MODES)}, got {mode!r}")
     if table.dim() != 2 or idx.dim() != 2:
@@ -150,7 +167,7 @@ def gather_axis_smem(table: torch.Tensor, idx: torch.Tensor,
                          f"may use")
     if _check(table, {torch.float32}, idx) == "cpu":
         return gather_axis_plain(table, idx, mode)
-    out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
+    out = _output_like(idx)
     if idx.numel():
         status = build.load().slb_gather_axis_smem_f32(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols,

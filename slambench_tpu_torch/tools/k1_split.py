@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import subprocess
@@ -100,23 +99,7 @@ def k1f_variant_source(mx: int = 2, weight: str = _WEIGHT,
 def build_libs(sources: dict) -> dict:
     """Compile each {name: CUDA source} into its own shared library, one
     nvcc process each, all started together; returns {name: CDLL}."""
-    os.makedirs(build.BUILD_DIR, exist_ok=True)
-    nvcc, jobs = build.find_nvcc(), {}
-    for name, src in sources.items():
-        digest = hashlib.sha256(src.encode()).hexdigest()[:16]
-        cu = os.path.join(build.BUILD_DIR, f"k1_split_{digest}.cu")
-        path = os.path.join(build.BUILD_DIR, f"libk1_split_{digest}.so")
-        with open(cu, "w") as f:
-            f.write(src)
-        cmd = [nvcc, *build.NVCC_FLAGS, "-shared", "-o", path, cu]
-        jobs[name] = (cmd, path, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (cmd, path, proc) in jobs.items():
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out}")
-        libs[name] = ctypes.CDLL(path)
+    libs = build.build_variants(sources, "k1_split")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, lib in libs.items():
         if name == "old":
@@ -127,6 +110,26 @@ def build_libs(sources: dict) -> dict:
                                                    vp, cf, vp, vp, vp]
             lib.slb_mm2m_bilateral_f32.restype = ci
     return libs
+
+
+def empty_kernel_ms(device: torch.device, reps: int = 200) -> dict:
+    """Mode 0 alone: an empty kernel on the old K1's 240x320 grid, the
+    floor under any launch (what the gather rows sit on)."""
+    with open(OLD_SOURCE) as f:
+        lib = build_libs({"old": f.read()})["old"]
+    depth = torch.zeros((240, 320), device=device)
+    out = torch.empty_like(depth)
+    lut = make_gaussian()
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def empty():
+        build.check(lib.slb_k1_split(
+            0, depth.data_ptr(), out.data_ptr(), 240, 320,
+            lut.ctypes.data_as(ctypes.c_void_p), 1.0, stream),
+            "k1_split mode 0")
+
+    ms, paced = per_launch_ms(empty, reps)
+    return {"ms": ms, "host_paced": paced}
 
 
 def card_line() -> str:

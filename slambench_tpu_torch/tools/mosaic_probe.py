@@ -31,6 +31,9 @@ the same measurement; none exists for K1, K2), ``bound_ns_per_elem``
 (``bytes`` over 3.35 TB/s, or operations over 67 TFLOP/s where larger)
 and ``l2_resident`` (whether those bytes fit the 50 MB L2, so that
 back-to-back launches find them warm; the 16.7 M-lookup cases do not).
+G1's entries also hold ``l2_sector_bytes`` (a 32-byte sector a random
+table read, plus the index and output streams) and
+``l2_sector_tb_per_s``, the rate that the kernel's time implies.
 Times come from ``tools/timing.per_launch_ms``: one CUDA-event pair
 around back-to-back launches after a warm-up, median of five runs.
 
@@ -77,9 +80,12 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def measure(kernel: Callable[[], torch.Tensor],
             twin: Callable[[], torch.Tensor], count: int, nbytes: int,
             ops: float = 0.0, tol: Optional[dict] = None,
-            twin_is_library: bool = True, reps: int = 100) -> dict:
+            twin_is_library: bool = True, reps: int = 100,
+            sectors: Optional[int] = None) -> dict:
     """One probe entry: the kernel against its plain twin on the same
-    inputs (exact unless ``tol``), timed on the card."""
+    inputs (exact unless ``tol``), timed on the card. ``sectors``: the
+    L2 sector bytes a device-memory gather moves (``l2_sectors``), kept
+    beside the byte bound with the rate the kernel's time implies."""
     got, want = kernel(), twin()
     err = max_abs_err(got, want)
     ok = (err == 0.0 if tol is None else
@@ -99,7 +105,19 @@ def measure(kernel: Callable[[], torch.Tensor],
                      host_bound=k_paced)
         if twin_is_library:
             entry["library_ns_per_elem"] = entry["plain_ns_per_elem"]
+    if sectors is not None:
+        entry["l2_sector_bytes"] = sectors
+        entry["l2_sector_tb_per_s"] = (
+            None if entry["ns_per_elem"] is None
+            else sectors / (entry["ns_per_elem"] * count) * 1e-3)
     return entry
+
+
+def l2_sectors(count: int) -> int:
+    """L2-to-SM bytes of ``count`` random lookups from device memory: a
+    32-byte sector a table read, whatever the entry's width, plus the
+    4-byte index read and the 4-byte output written."""
+    return (32 + 8) * count
 
 
 def report(out: dict, name: str, entry: dict) -> None:
@@ -135,7 +153,8 @@ def probe_gathers(out: dict, device: torch.device, seed: int = 0) -> None:
             report(out, "take_flat_device", measure(
                 lambda: gather.gather_flat(table, idx),
                 lambda: gather.gather_flat_plain(table, idx),
-                idx.numel(), 3 * table.numel() * 4))
+                idx.numel(), 3 * table.numel() * 4,
+                sectors=l2_sectors(idx.numel())))
 
 
 def probe_wide_gather(out: dict, device: torch.device, n: int = WIDE_N,
@@ -157,7 +176,7 @@ def probe_wide_gather(out: dict, device: torch.device, n: int = WIDE_N,
     report(out, "wide_gather_device", measure(
         lambda: gather.gather_flat(depth, idx),
         lambda: gather.gather_flat_plain(depth, idx), count,
-        io + depth.numel() * 4))
+        io + depth.numel() * 4, sectors=l2_sectors(count)))
     entry = measure(lambda: gather.gather_smem_u16(mm, idx),
                     lambda: gather.gather_u16_plain(mm, idx), count,
                     io + mm.numel() * 2, ops=count)
@@ -215,7 +234,7 @@ def probe_gather_modes(out: dict, device: torch.device,
                 report(out, f"gather_{kind}_{mode}_{label}", measure(
                     lambda: gather.gather_flat(table, idx, clamp),
                     lambda: gather.gather_flat_plain(table, idx, clamp),
-                    count, nbytes))
+                    count, nbytes, sectors=l2_sectors(count)))
 
 
 def run(device: torch.device, n: Optional[int] = None,

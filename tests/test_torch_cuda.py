@@ -1,8 +1,9 @@
 """The port on a CUDA card: kernels K1, K1F (mm2meters fused into K1),
 K2 and K2F (track fused into K2) against their plain twins at the main
 path's shapes, one ICP level with no host read, mm2meters as IEEE
-division, G1-G4 against their twins at the gather probes' shapes, and a
-short end-to-end run through the CLI.
+division, G1-G4 against their twins at the gather probes' shapes and on
+the edge cases of the redesigned G1 and G2, and a short end-to-end run
+through the CLI.
 
 Imports torch and the port only (no JAX), so it runs on the card's
 machine, where JAX is absent, with
@@ -459,6 +460,35 @@ def test_g4_2d_gather_equals_twin(dev, tables):
     got = _launch_once("gather_2d",
                        lambda: gather.gather_2d(tables["depth"], vi, ui))
     assert torch.equal(got, gather.gather_2d_plain(tables["depth"], vi, ui))
+
+
+def test_g1_g2_edge_cases_equal_twins(dev):
+    """The redesigned kernels' own edge cases (tools/gather_probe.py:
+    edge_cases): misaligned indices, 1, 3 and 4k+3 lookups, clamping
+    with indices below -n, in [-n, 0) and at or above n, G2 tables that
+    do not divide its bands or its cluster's split, the full 232,448
+    bytes in two rows, and G1's all-scalar way through the C entry."""
+    from slambench_tpu_torch.tools.gather_probe import edge_cases
+    differ = []
+    for name, kernel, twin in edge_cases(dev):
+        got, want = kernel(), twin()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            differ.append(name)
+    assert not differ
+
+
+def test_g2_flat_back_to_back_launches_equal_twin(dev, tables):
+    """50 G2 flat launches queued back to back: each sets up its own
+    mbarrier and cluster barriers, so none leaks into the next."""
+    t = tables["p1"]
+    i = _ri(dev, 0, t.numel(), (256, 128), seed=50)
+    want = gather.gather_axis_plain(t, i, "flat")
+    before = gather.launches["gather_axis_smem"]
+    outs = [gather.gather_axis_smem(t, i, "flat") for _ in range(50)]
+    torch.cuda.synchronize()
+    assert gather.launches["gather_axis_smem"] == before + 50
+    assert all(torch.equal(o, want) for o in outs)
 
 
 def test_refused_shared_memory_launch_returns_its_error(dev):

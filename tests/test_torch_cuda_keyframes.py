@@ -1,5 +1,6 @@
-"""The keyframe layer on a CUDA card: the pose graph and bundle
-adjustment against the same functions on the CPU, the loop-closure
+"""The keyframe layer on a CUDA card: the pose graph (whose class
+optimizes on the card by default) and bundle adjustment against the
+same functions on the CPU, the loop-closure
 alignment through K2F against its plain twin, and the CLI's
 ``--keyframes --ba`` route with K2F's launches split between the frame
 path and the alignment.
@@ -34,7 +35,7 @@ from slambench_tpu_torch.models.keyframes import (  # noqa: E402
     KeyframeStore, PoseGraphKFusion,
 )
 from slambench_tpu_torch.models.posegraph import (  # noqa: E402
-    optimize_pose_graph,
+    PoseGraph, optimize_pose_graph,
 )
 from slambench_tpu_torch.ops.hopper import reduce  # noqa: E402
 from slambench_tpu_torch.ops.vertex import (  # noqa: E402
@@ -82,6 +83,16 @@ def test_pose_graph_on_card_matches_cpu(dev):
                                     for a in args))
     np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(),
                                atol=CARD_TOL)
+
+
+def test_pose_graph_class_defaults_to_the_card(dev):
+    graph = PoseGraph()
+    assert graph.device.type == "cuda"
+    graph.add_pose(np.eye(4, dtype=np.float32))
+    graph.add_pose(_exp([0.1, 0, 0, 0, 0, 0.05]))
+    graph.add_odometry_edge(0, 1)
+    poses = graph.optimize(n_iters=2)
+    assert poses.shape == (2, 4, 4) and np.isfinite(poses).all()
 
 
 def test_bundle_adjust_on_card_matches_cpu(dev):

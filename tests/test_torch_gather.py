@@ -79,17 +79,22 @@ def test_2d_twin_matches_jnp_advanced_index():
 
 @pytest.mark.parametrize("dtype", ["float32", "int16"])
 def test_clamp_twin_matches_jnp_clip_and_promise_in_bounds(dtype):
-    """The XLA probes' modes: clip with out-of-range indices, and
-    promise_in_bounds with indices in range. JAX wraps an index in
-    [-n, 0) NumPy-style before it clips, where the kernel's clamp (like
-    ``torch.clamp``) gives 0, so the negative indices here lie below -n,
-    where both give 0."""
+    """The XLA probes' modes: clip with indices below -n, in [-n, 0)
+    (which JAX wraps NumPy-style before it clips), in range and at or
+    above n; and promise_in_bounds with indices in range."""
     t = TABLES[dtype].reshape(-1)
     jt = jnp.asarray(t)
-    out_of_range = np.where(RNG.random(4096) < 0.5,
-                            _idx(-t.size, (4096,), lo=-3 * t.size),
-                            _idx(t.size + 500, (4096,))).astype(np.int32)
-    assert (out_of_range < 0).any() and (out_of_range >= t.size).any()
+    pick = RNG.integers(0, 3, 4096)
+    out_of_range = np.select(
+        [pick == 0, pick == 1],
+        [_idx(-t.size, (4096,), lo=-3 * t.size),
+         _idx(0, (4096,), lo=-t.size)],
+        _idx(t.size + 500, (4096,))).astype(np.int32)
+    edges = [-t.size - 1, -t.size, -1, 0, t.size - 1, t.size,
+             np.iinfo(np.int32).min, np.iinfo(np.int32).max]
+    out_of_range = np.concatenate([out_of_range, np.int32(edges)])
+    assert (out_of_range < -t.size).any() and (out_of_range >= t.size).any()
+    assert ((out_of_range < 0) & (out_of_range >= -t.size)).any()
     _eq(gather.gather_flat_plain(T(t), T(out_of_range), clamp=True),
         jt.at[jnp.asarray(out_of_range)].get(mode="clip").astype(jnp.float32))
     inside = _idx(t.size, (4096,))

@@ -19,6 +19,7 @@ from slambench_tpu_torch.models import posegraph as PP  # noqa: E402
 
 torch.set_num_threads(2)
 TOL = 1e-4          # optimized poses, port vs JAX (f32)
+CPU = torch.device("cpu")
 
 
 def _exp(x) -> np.ndarray:
@@ -75,7 +76,7 @@ def test_posegraph_class_matches_jax(chain):
     """``PoseGraph`` (host lists, power-of-two edge padding) on the
     chain's real edges: the same solution as JAX's within TOL."""
     _gt, est, ij, T, w = chain
-    port, jax_ = PP.PoseGraph(), JP.PoseGraph()
+    port, jax_ = PP.PoseGraph(device=CPU), JP.PoseGraph()
     for p in est:
         assert port.add_pose(p) == jax_.add_pose(p)
     for k in range(int((w > 0).sum())):
@@ -87,7 +88,17 @@ def test_posegraph_class_matches_jax(chain):
                                jax_.optimize(n_iters=8), atol=TOL)
     np.testing.assert_allclose(np.stack(port.poses), np.stack(jax_.poses),
                                atol=TOL)
-    assert PP.PoseGraph().optimize().shape == (0, 4, 4)
+    assert PP.PoseGraph(device=CPU).optimize().shape == (0, 4, 4)
+
+
+def test_posegraph_defaults_to_the_card():
+    """Without ``device`` the graph optimizes on the card, as JAX's on
+    its default device; with no card that raises, as ``resolve_device``
+    does, and never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present (tests/test_torch_cuda_keyframes.py)")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        PP.PoseGraph()
 
 
 def test_edge_residual_zero_when_consistent():
