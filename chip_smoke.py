@@ -28,12 +28,18 @@ no ``ok`` line):
    (result codes equal, the reduction within tolerance, two calls bit for
    bit), timed as one CUDA-event pair around back-to-back launches
    (``tools/timing.py``); G1-G4 in every mode at the gather probes'
-   shapes, and G1 and G2 on the redesigned kernels' edge cases
-   (``tools/gather_probe.py:edge_cases``: misaligned indices, 1, 3 and
-   4k+3 lookups, clamping with indices below -n, in [-n, 0) and at or
-   above n, tables that do not divide G2's bands or its cluster's split,
-   the full 232,448-byte table) and 50 G2 flat launches back to back,
-   which must all agree exactly;
+   shapes (G4 on both routes: the 240x320 image staged, 76% of it in
+   every block, and a 720x1280 one from device memory), and on the redesigned
+   kernels' edge cases (``tools/gather_probe.py:edge_cases``: misaligned
+   indices, 1, 3 and 4k+3 lookups, indices below -n, in [-n, 0), in
+   range, at or above n and at the int32 extremes, which must give the
+   Pallas bodies' wrap, clip or NaN; tables that do not divide G2's
+   bands or its cluster's split, the full 232,448-byte table, G3 at its
+   cap and at no multiple of 16 bytes, G4 at 1x1, 37x13, a block's stage
+   and the staged route's largest, each also one entry larger), with
+   both G4 routes launched, and 50 G2
+   flat launches back to back, which must all agree exactly (NaN where
+   the twin has NaN);
 4. main path — synthesise the traj2-like clip on the card, run the
    port's CLI ``run()`` phased at 256^3 / 4.8 m / 320x240 / pyramid
    10,5,4 / -r 1 / -z 4, check the ATE with the port's check_pos, the
@@ -458,9 +464,10 @@ def phase_kernels(dev: torch.device) -> dict:
 
 def phase_gathers(dev: torch.device) -> dict:
     """G1-G4 against their plain twins, in every mode, at the gather
-    probes' shapes; a gather copies, so the results must be equal."""
+    probes' shapes; a gather copies, so the results must be equal (NaN
+    where the twin has NaN)."""
     from slambench_tpu_torch.ops.hopper import gather as g
-    from slambench_tpu_torch.tools.gather_probe import edge_cases
+    from slambench_tpu_torch.tools.gather_probe import edge_cases, equal_nan
 
     log("  G1-G4 vs their plain twins (must be equal)")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -469,12 +476,12 @@ def phase_gathers(dev: torch.device) -> dict:
         return torch.randint(lo, hi, shape, generator=gen, device=dev,
                              dtype=torch.int32)
 
-    def same(name, got, want):
+    def same(name, got, want, quiet=False):
         torch.cuda.synchronize()
-        if got.shape != want.shape or got.dtype != want.dtype \
-                or not torch.equal(got, want):
+        if not equal_nan(got, want):
             raise RuntimeError(f"{name}: kernel differs from its plain twin")
-        log(f"    {name}: {tuple(got.shape)} equal")
+        if not quiet:
+            log(f"    {name}: {tuple(got.shape)} equal")
 
     t = torch.rand((256, 128), generator=gen, device=dev)
     for mode, hi in (("flat", 256 * 128), ("lane", 128), ("sublane", 256)):
@@ -490,15 +497,19 @@ def phase_gathers(dev: torch.device) -> dict:
     depth = g.mm_to_meters(mm)
     idx = ri(0, 240 * 320, (1024, 2048))
     vi, ui = ri(0, 240, (1024, 2048)), ri(0, 320, (1024, 2048))
-    g1 = g.gather_flat(depth, idx)
-    same("G1 f32 image 2M", g1, g.gather_flat_plain(depth, idx))
+    g1 = g.gather_flat(depth, idx, mode="fill")
+    same("G1 f32 image 2M", g1, g.gather_flat_plain(depth, idx, mode="fill"))
     same("G1 u16 image 2M", g.gather_flat(mm, idx),
          g.gather_flat_plain(mm, idx))
     g3 = g.gather_smem_u16(mm, idx)
     same("G3 u16 smem 2M", g3, g.gather_u16_plain(mm, idx))
     same("G3 == G1 on the f32 image (bit for bit)", g3, g1)
-    same("G4 2-D 2M", g.gather_2d(depth, vi, ui),
+    same("G4 2-D 2M (staged route)", g.gather_2d(depth, vi, ui),
          g.gather_2d_plain(depth, vi, ui))
+    big = torch.rand((720, 1280), generator=gen, device=dev)
+    vi7, ui7 = ri(0, 720, (1024, 2048)), ri(0, 1280, (1024, 2048))
+    same("G4 2-D 2M, 720x1280 (device memory)", g.gather_2d(big, vi7, ui7),
+         g.gather_2d_plain(big, vi7, ui7))
     vol = ri(-32766, 32767, (256 ** 3,)).to(torch.int16)
     for n in (76_800, 256 ** 3):
         inside = ri(0, vol.numel(), (n,))
@@ -508,16 +519,20 @@ def phase_gathers(dev: torch.device) -> dict:
         same(f"G1 int16 volume {n} clip", g.gather_flat(vol, outside, True),
              g.gather_flat_plain(vol, outside, True))
     cases = edge_cases(dev)
+    before = dict(g.launches)
     for name, kernel, twin in cases:
-        same(name, kernel(), twin())
+        same(name, kernel(), twin(), quiet=True)
+    idle = [k for k in g.launches if g.launches[k] == before[k]]
+    if idle:
+        raise RuntimeError(f"edge cases launched no {idle}")
     flat_i = ri(0, t.numel(), (256, 128))
     want = g.gather_axis_plain(t, flat_i, "flat")
     outs = [g.gather_axis_smem(t, flat_i, "flat") for _ in range(50)]
     torch.cuda.synchronize()
     if not all(torch.equal(o, want) for o in outs):
         raise RuntimeError("G2 flat: 50 back-to-back launches differ")
-    log(f"    {len(cases)} edge cases of G1 and G2 equal; 50 G2 flat "
-        f"launches back to back equal")
+    log(f"    {len(cases)} edge cases of G1-G4 equal (both G4 routes "
+        f"launched); 50 G2 flat launches back to back equal")
     return {k: 0.0 for k in g.launches}
 
 
@@ -1748,14 +1763,16 @@ def phase_probes(dev: torch.device) -> dict:
 # The gather kernels' rows: the probe entry each is timed by, and the
 # Pallas call of slambench_tpu/tools/mosaic_probe.py it stands in for.
 G_ROWS = (
-    ("G1 gather_flat", "gather_flat", "wide_gather_device",
+    ("G1 gather_flat", "gather_flat", "mosaic", "wide_gather_device",
      "slambench_tpu/tools/mosaic_probe.py:214"),
-    ("G2 gather_axis_smem", "gather_axis_smem", "mosaic_take_flat",
+    ("G2 gather_axis_smem", "gather_axis_smem", "mosaic", "mosaic_take_flat",
      "slambench_tpu/tools/mosaic_probe.py:55"),
-    ("G3 gather_smem_u16", "gather_smem_u16", "wide_gather_smem_u16",
-     "slambench_tpu/tools/mosaic_probe.py:214"),
-    ("G4 gather_2d", "gather_2d", "adv2d_gather",
-     "slambench_tpu/tools/mosaic_probe.py:243"),
+    ("G3 gather_smem_u16", "gather_smem_u16", "mosaic",
+     "wide_gather_smem_u16", "slambench_tpu/tools/mosaic_probe.py:214"),
+    ("G4 gather_2d, staged route (240x320)", "gather_2d_staged",
+     "mosaic", "adv2d_gather", "slambench_tpu/tools/mosaic_probe.py:243"),
+    ("G4 gather_2d, device-memory route (720x1280)", "gather_2d_device",
+     "gather", "op2d_f32_720p", "slambench_tpu/tools/mosaic_probe.py:243"),
 )
 
 
@@ -1838,8 +1855,8 @@ def main() -> int:
          "bound_ms": kfp["k2f_snapshot"]["bound_ms"],
          "bound_by": kfp["k2f_snapshot"]["bound_by"], "library_ms": None},
     ]
-    for name, key, entry, replaces in G_ROWS:
-        e = pr["mosaic"][entry]
+    for name, key, tool, entry, replaces in G_ROWS:
+        e = pr[tool][entry]
         per_ms = e["count"] * 1e-6
         rows.append({
             "name": name, "route": "cuda",

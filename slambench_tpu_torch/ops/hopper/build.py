@@ -75,15 +75,21 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                          vp, ci, ci, ci, cf, cf, ci, ci, vp,
                                          vp, vp]
     lib.slb_track_reduce_f32.restype = ci
+    return bind_gather(lib)
+
+
+def bind_gather(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Bind the entry points of ``csrc/gather.cu`` (G1-G4)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.slb_gather_flat.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, vp]
-    lib.slb_gather_flat.restype = ci
     lib.slb_gather_axis_smem_f32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
                                              ci, vp]
-    lib.slb_gather_axis_smem_f32.restype = ci
     lib.slb_gather_smem_u16.argtypes = [vp, vp, vp, ci, ci, ci, vp]
-    lib.slb_gather_smem_u16.restype = ci
-    lib.slb_gather_2d_f32.argtypes = [vp, vp, vp, vp, ci, ci, vp]
-    lib.slb_gather_2d_f32.restype = ci
+    lib.slb_gather_2d_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                      vp]
+    for fn in (lib.slb_gather_flat, lib.slb_gather_axis_smem_f32,
+               lib.slb_gather_smem_u16, lib.slb_gather_2d_f32):
+        fn.restype = ci
     return lib
 
 

@@ -7,44 +7,47 @@
 // a VMEM-resident table at all. On Hopper every thread can load from any
 // address, so the question becomes how fast the card serves a gather, and
 // from which memory: device memory through L2 and the read-only path
-// (G1, G4) or a table staged into shared memory (G2, G3).
+// (G1, G4's device-memory route) or a table staged into shared memory
+// (G2, G3, G4's staged route).
 //
-// Bound: bytes. A lookup moves a 4-byte index in and a 4-byte value out
-// and does no arithmetic (G3 one division), so the least time is
-// (index + output + table once) / 3.35 TB/s. Random lookups touch a new
-// 32-byte sector per table read; while the table fits the 50 MB L2 those
-// reads stay on chip and only the index and output streams reach HBM.
-// At P1's 32,768 lookups the bound (0.117 us) is far below an empty
+// Bound: bytes. A lookup moves a 4-byte index in (G4 two) and a 4-byte
+// value out and does no arithmetic (G3 one division), so the least time
+// is (indices + output + table once) / 3.35 TB/s. Random lookups touch a
+// new 32-byte sector per table read; while the table fits the 50 MB L2
+// those reads stay on chip and only the index and output streams reach
+// HBM. At P1's 32,768 lookups the bound (0.117 us) is far below an empty
 // launch (~1.8 us): what a design there can remove is the time above it.
 //
+// Every kernel walks its lookups the same way (serve()): a persistent
+// grid, kLookups consecutive lookups a thread with one 16-byte index load
+// a stream (ld_index) and one 16-byte store (__stcs, streaming), every
+// table read of the group issued before any is used, warps of work
+// spread over the blocks first; a scalar head and tail take the lookups
+// before the index is 16-byte aligned and after the last whole group, and
+// every lookup goes the scalar way when the streams sit at different
+// offsets within 16 bytes (the wrappers allocate out at the index's
+// offset, so their own calls take the vector way). A staged kernel's
+// threads load their first indices before they wait for the stage, so
+// the index stream overlaps the copy.
+//
 // G1 gather_flat (replaces P1's flat form and P2, mosaic_probe.py:56 and
-// :217). A persistent grid (the SM count times the blocks an SM holds)
-// walks the lookups kLookups at a time per thread: one 16-byte index load
-// with a streaming hint (__ldcs), all kLookups table loads issued before
-// any is used (__ldg), one 16-byte store with a streaming hint (__stcs),
-// so the streams do not evict the table from L2. Warps of work go to
-// different blocks first, so a small launch still uses every SM. A
-// scalar head and tail take the lookups before idx is 16-byte aligned and
-// after the last whole group; when idx and out sit at different offsets
-// within 16 bytes, every lookup goes the scalar way, kLookups in flight a
-// thread (the wrapper allocates out at idx's offset, so its own calls
-// take the vector way). Measured on the H100 (PERF.md), what bounds G1 is
-// the L2's rate of random 32-byte sectors, one a lookup, not latency:
-// 1, 2, 4 or 8 lookups a thread take the same time; the hints keep a
-// 32 MB table in L2 (8% at 16.7 M lookups).
+// :217): the table in device memory (__ldg). Measured on the H100
+// (PERF.md), what bounds it is L2's rate of random 32-byte sectors, one
+// a lookup, not latency: 1, 2, 4 or 8 lookups a thread take the same
+// time; the hints keep a 32 MB table in L2 (8% at 16.7 M lookups).
 //
 // G2 gather_axis_smem (replaces P1, mosaic_probe.py:56). At P1's size a
 // staged gather is bound by its rounds of staging and synchronisation
 // above the launch, not by bytes, so every mode spreads over at least a
 // block an SM and stages only what its outputs can read, by asynchronous
 // copy completing on an mbarrier while the block loads its first indices:
-//   * flat: thread-block clusters of kCluster; each block stages
-//     1/kCluster of the table by one TMA bulk copy (cp.async.bulk) and a
-//     lookup reads the owning block's share through distributed shared
-//     memory (mapa, ld.shared::cluster) after a cluster barrier; a second
-//     one keeps every share alive until the cluster's last read. The
-//     remote reads and the cluster's barriers cost ~2 us above the lane
-//     mode's time (PERF.md);
+//   * flat: gather_flat_cluster, thread-block clusters of kCluster; each block
+//     stages 1/kCluster of the table by one TMA bulk copy
+//     (cp.async.bulk) and a lookup reads the owning block's share
+//     through distributed shared memory (mapa, ld.shared::cluster) after
+//     a cluster barrier; a second one keeps every share alive until the
+//     cluster's last read. The remote reads and the cluster's barriers
+//     cost ~2 us above the lane mode's time (PERF.md);
 //   * lane: each block serves a contiguous piece of the outputs and
 //     stages the table rows that piece reads (out[r, c] = t[r, idx]), one
 //     TMA bulk copy;
@@ -55,26 +58,54 @@
 // (in the part the copy cannot take) by the block's own loads, which
 // arrive on the same mbarrier.
 //
-// Contracts (the plain twins in ops/hopper/gather.py are the reference):
+// G3 gather_smem_u16 (replaces P2 on chip). The uint16 millimetre image
+// (240x320 = 153,600 bytes) staged in shared memory by TMA bulk copy on
+// an mbarrier, one block of kStageThreads an SM (the stage fills most of
+// the SM's shared memory), each thread's first index load issued before
+// it waits for the stage. What the old design paid above the streams was
+// a staging loop of scalar loads and a __syncthreads before the first
+// index load. Sharing the stage's L2 traffic across a cluster by TMA
+// multicast, or staging in fewer blocks, costs more than it saves
+// (tools/gather_variants.cu, timed by tools/gather_sweep.py; PERF.md).
+//
+// G4 gather_2d (replaces P3, mosaic_probe.py:246), two routes chosen by
+// the table's size alone (the wrapper's rule). G1 on P3's image showed
+// the cost of the old kernel: every table read a random L2 sector (67 MB
+// beside 25 MB of streams) at L2's sector rate.
+//   * staged (gather_2d_staged): every block stages the table's first
+//     `share` floats (the wrapper passes as many as a block holds beside
+//     its barrier, 58,108: all of a table that fits, 76% of P3's
+//     307,200-byte image) by one TMA bulk copy and reads the rest from
+//     device memory by a predicated load, so most table reads leave L2.
+//     The table split over a cluster and read through distributed shared
+//     memory, the design first built, is slower: random 4-byte remote
+//     reads are slow (tools/gather_variants.cu; PERF.md);
+//   * device memory (gather_flat, G1's loop on the 2-D index): share 0,
+//     which the wrapper passes for tables of which a block would stage
+//     less than half.
+//
+// Contracts (the plain twins in ops/hopper/gather.py are the reference;
+// each out-of-range index gives what the Pallas body gives in interpret
+// mode):
 //   * G1 gather_flat: out[i] = float(table[idx[i]]), table f32, int16 or
-//     uint16 (the integer types widen exactly). clamp != 0 does what
+//     uint16 (the integer types widen exactly). mode 1 (kClip) does what
 //     JAX's mode="clip" does: an index in [-n_table, 0) first becomes
 //     idx + n_table (NumPy-style), then the index is clipped to
-//     [0, n_table - 1]; otherwise idx must be in range, as
-//     mode="promise_in_bounds".
+//     [0, n_table - 1]; mode 2 (kFill) wraps the same way and gives NaN
+//     for any other out-of-range index, reading nothing (JAX's default
+//     for take / take_along_axis, which P1's flat body and P2 use); mode
+//     0 (kPromise): idx must be in range, as mode="promise_in_bounds".
 //   * G2 gather_axis_smem: an f32 [rows, cols] table (at most 232,448
 //     bytes), mode 0 flat (take(t.ravel(), i)), 1 lane
 //     (take_along_axis(t, i, axis=1)) or 2 sublane
-//     (take_along_axis(t, i, axis=0)).
-//   * G3 gather_smem_u16: the uint16 millimetre image in shared memory
-//     (240x320 = 153,600 bytes; the f32 image, 307,200 bytes, does not
-//     fit), each lookup converted as mm2meters does: float(mm) / 1000.0f.
-//     Built without --use_fast_math, so the division is IEEE and the
-//     result equals G1 on the f32 metre image bit for bit.
-//   * G4 gather_2d: out[i] = table[vi[i] * cols + ui[i]], f32, in range.
-// G2 and G3 clamp every index into the staged table (a negative one to
-// 0), so a bad index reads a wrong value instead of faulting; in-range
-// indices are exact.
+//     (take_along_axis(t, i, axis=0)); kFill along the gathered axis.
+//   * G3 gather_smem_u16: kFill over the table, each lookup converted as
+//     mm2meters does: float(mm) / 1000.0f. Built without
+//     --use_fast_math, so the division is IEEE and the result equals G1
+//     on the f32 metre image bit for bit.
+//   * G4 gather_2d: out[i] = table[vi', ui'], f32, where each index first
+//     wraps from [-n, 0) and is then clipped to [0, n - 1] along its axis
+//     (P3's t[vi, ui]): memory-safe on any input.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -87,28 +118,75 @@ namespace cg = cooperative_groups;
 
 constexpr int kFlatThreads = 256;
 constexpr int kBandThreads = 256;
-constexpr int kSmemThreads = 1024;
-// Consecutive lookups a thread serves (G1, G2 flat and lane): one 16-byte
-// index load and one 16-byte store. tools/gather_sweep.py sweeps 1 / 2 /
-// 4 / 8 on copies of this file (PERF.md).
+constexpr int kStageThreads = 1024;   // G3, G4 staged: a block an SM
+// Consecutive lookups a thread serves: one 16-byte index load a stream
+// and one 16-byte store. tools/gather_sweep.py sweeps 1 / 2 / 4 / 8 on
+// copies of this file (PERF.md).
 constexpr int kLookups = 4;
 constexpr int kCluster = 8;        // G2 flat: blocks sharing one table
 constexpr int kBandCols = 4;       // G2 sublane: 16 bytes of a table row
-// G3: lookups per thread that a staged block should serve before another
-// block (and another copy of the table) is worth its staging cost.
-constexpr int kLookupsPerThread = 8;
 constexpr int kMaxSmemBytes = 232448;
 constexpr int kDefaultSmemBytes = 48 * 1024;
 
-__device__ __forceinline__ int clampi(int v, int hi) {
-  return v < 0 ? 0 : (v > hi ? hi : v);
-}
+// JAX's gather modes, as the kernels take them.
+enum GatherMode : int { kPromise = 0, kClip = 1, kFill = 2 };
 
 // JAX's mode="clip": an index in [-n, 0) wraps NumPy-style, then the
 // result is clipped to [0, n - 1] (j + n cannot overflow: j < 0).
 __device__ __forceinline__ int clip_index(int j, int n) {
   if (j < 0) j += n;
   return j < 0 ? 0 : (j >= n ? n - 1 : j);
+}
+
+// JAX's mode="fill": an index in [-n, 0) wraps; any other index outside
+// [0, n) gives -1, which the kernels turn into NaN (G1 reads nothing for
+// it; a staged kernel reads its stage's entry 0 and drops it).
+__device__ __forceinline__ int fill_index(int j, int n) {
+  if (j < 0) j += n;
+  return j >= 0 && j < n ? j : -1;
+}
+
+__device__ __forceinline__ float fill_nan() {
+  return __int_as_float(0x7fc00000);
+}
+
+// A lookup's value, or NaN where its position is -1. The reads go to a
+// position that is always valid (0 for -1), or under a predicate, and the
+// NaN is selected after: a read inside a branch on the position makes
+// each lookup wait for its read before the next one issues (G1 on int16
+// tables lost its 4 reads in flight that way; PERF.md).
+__device__ __forceinline__ float or_nan(int j, float v) {
+  return j < 0 ? fill_nan() : v;
+}
+
+// float(*p) where `take`, else `otherwise`, by a predicated read-only load
+// (nothing is read where `take` is false): unlike a load under a branch,
+// it leaves the thread's other loads in flight beside it.
+__device__ __forceinline__ float ldg_if(const float* p, bool take,
+                                        float otherwise) {
+  float v = otherwise;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t"
+      "@q ld.global.nc.f32 %0, [%1];\n\t}"
+      : "+f"(v) : "l"(p), "r"(static_cast<unsigned>(take)));
+  return v;
+}
+
+__device__ __forceinline__ float ldg_if(const int16_t* p, bool take,
+                                        float otherwise) {
+  int v = 0;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t"
+      "@q ld.global.nc.s16 %0, [%1];\n\t}"
+      : "+r"(v) : "l"(p), "r"(static_cast<unsigned>(take)));
+  return take ? static_cast<float>(v) : otherwise;
+}
+
+__device__ __forceinline__ float ldg_if(const uint16_t* p, bool take,
+                                        float otherwise) {
+  unsigned v = 0;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t"
+      "@q ld.global.nc.u16 %0, [%1];\n\t}"
+      : "+r"(v) : "l"(p), "r"(static_cast<unsigned>(take)));
+  return take ? static_cast<float>(v) : otherwise;
 }
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -126,11 +204,27 @@ static_assert(kLookups % kVec == 0, "kLookups: 1, 2 or a multiple of 4");
 using IdxVec = Lanes<kVec>::I;
 using OutVec = Lanes<kVec>::F;
 
+// An index load: with the streaming hint (__ldcs, evict-first) or by the
+// read-only path (__ldg). G1 and G2 take the hint, which keeps G1's table
+// in L2 against its index stream (-8% at 16.7 M lookups into the 32 MB
+// volume); G3 and G4, whose table reads do not depend on L2 keeping the
+// table, take the read-only path (kHint false), 8-11% faster at P2 and P3
+// (PERF.md).
+template <bool kHint, typename V>
+__device__ __forceinline__ V ld_index(const V* p) {
+  if constexpr (kHint) {
+    return __ldcs(p);
+  } else {
+    return __ldg(p);
+  }
+}
+template <bool kHint>
 __device__ __forceinline__ void load_idx(int (&j)[kLookups],
                                          const int* p) {
 #pragma unroll
   for (int v = 0; v < kLookups / kVec; ++v) {
-    const IdxVec q = __ldcs(reinterpret_cast<const IdxVec*>(p) + v);
+    const IdxVec q =
+        ld_index<kHint>(reinterpret_cast<const IdxVec*>(p) + v);
     const int* lane = reinterpret_cast<const int*>(&q);
 #pragma unroll
     for (int k = 0; k < kVec; ++k) j[v * kVec + k] = lane[k];
@@ -149,14 +243,78 @@ __device__ __forceinline__ void store_out(float* p,
   }
 }
 
-// Serves out[p] = fetch(idx[p], p) for p in [0, n) with the threads
-// tid = 0..nthreads-1: groups of kLookups by 16-byte accesses where idx
-// and out allow it, the rest one lookup at a time, kLookups in flight a
-// thread. Each thread calls ready() once, after its first index load and
-// before its first fetch (or at the end, if it has none): the staged
-// kernels wait there for their stage, so the index loads overlap it.
-template <typename Fetch, typename Ready>
-__device__ __forceinline__ void serve(const int* __restrict__ idx,
+// ---------------------------- index streams ---------------------------- //
+// Each loads a lookup's raw indices from its stream(s) (group: kLookups
+// consecutive ones; one: a single one) and resolves them into a table
+// position, or -1 for NaN (at). lead() is the stream whose alignment
+// sets the scalar head, vec(head) whether the other streams allow the
+// vector way from there. serve() resolves only after a staged kernel's
+// wait, so the loads stay in flight across it.
+
+struct Raw {        // a lookup's loaded indices (v alone for one stream)
+  int v, u;
+};
+
+// One index a lookup, resolved against n entries by a GatherMode (a
+// template argument: resolving by a mode read at run time put each
+// lookup's resolve and read under branches; PERF.md).
+template <bool kHint, int kMode>
+struct FlatIdx {
+  static constexpr bool kFills = kMode == kFill;   // positions may be -1
+  const int* idx;
+  int n;
+  __device__ int at(Raw r) const {
+    if constexpr (kMode == kClip) return clip_index(r.v, n);
+    if constexpr (kMode == kFill) return fill_index(r.v, n);
+    return r.v;
+  }
+  __device__ const void* lead() const { return idx; }
+  __device__ bool vec(unsigned) const { return true; }
+  __device__ void group(Raw (&r)[kLookups], unsigned p0) const {
+    int v[kLookups];
+    load_idx<kHint>(v, idx + p0);
+#pragma unroll
+    for (int k = 0; k < kLookups; ++k) r[k] = Raw{v[k], 0};
+  }
+  __device__ Raw one(unsigned p) const {
+    return Raw{ld_index<kHint>(idx + p), 0};
+  }
+};
+
+// G4: the flat position of t[vi, ui] in a [rows, cols] table, each axis
+// wrapped and clipped as P3's Pallas body does (always in range).
+struct Idx2d {
+  static constexpr bool kFills = false;
+  const int* vi;
+  const int* ui;
+  int rows, cols;
+  __device__ int at(Raw r) const {
+    return clip_index(r.v, rows) * cols + clip_index(r.u, cols);
+  }
+  __device__ const void* lead() const { return vi; }
+  __device__ bool vec(unsigned head) const { return aligned16(ui + head); }
+  __device__ void group(Raw (&r)[kLookups], unsigned p0) const {
+    int v[kLookups], u[kLookups];
+    load_idx<false>(v, vi + p0);
+    load_idx<false>(u, ui + p0);
+#pragma unroll
+    for (int k = 0; k < kLookups; ++k) r[k] = Raw{v[k], u[k]};
+  }
+  __device__ Raw one(unsigned p) const {
+    return Raw{ld_index<false>(vi + p), ld_index<false>(ui + p)};
+  }
+};
+
+// Serves out[p] = fetch(position p, p) for p in [0, n) with the threads
+// tid = 0..nthreads-1: groups of kLookups by 16-byte accesses where the
+// streams allow it, the rest one lookup at a time, kLookups in flight a
+// thread. Each thread calls ready() once, after its first index loads
+// and before it resolves them (or at the end, if it has none): the
+// staged kernels wait there for their stage, so the index loads overlap
+// it (a use of a loaded index before the wait would stall on the load
+// first; PERF.md).
+template <typename Src, typename Fetch, typename Ready>
+__device__ __forceinline__ void serve(const Src& src,
                                       float* __restrict__ out, unsigned n,
                                       unsigned tid, unsigned nthreads,
                                       Fetch fetch, Ready ready) {
@@ -168,20 +326,24 @@ __device__ __forceinline__ void serve(const int* __restrict__ idx,
     }
   };
   unsigned head = static_cast<unsigned>(
-      ((16 - (reinterpret_cast<uintptr_t>(idx) & 15)) & 15) / 4);
+      ((16 - (reinterpret_cast<uintptr_t>(src.lead()) & 15)) & 15) / 4);
   head = head < n ? head : n;
   unsigned body_end = 0;          // [head, body_end): whole groups
-  if (aligned16(out + head)) {
+  if (aligned16(out + head) && src.vec(head)) {
     const unsigned groups = (n - head) / kLookups;
     body_end = head + groups * kLookups;
     for (unsigned g = tid; g < groups; g += nthreads) {
       const unsigned p0 = head + g * kLookups;
+      Raw r[kLookups];
       int j[kLookups];
       float v[kLookups];
-      load_idx(j, idx + p0);
+      src.group(r, p0);
       go();
 #pragma unroll
-      for (int k = 0; k < kLookups; ++k) v[k] = fetch(j[k], p0 + k);
+      for (int k = 0; k < kLookups; ++k) {
+        j[k] = src.at(r[k]);
+        v[k] = fetch(j[k], p0 + k);
+      }
       store_out(out + p0, v);
     }
   } else {
@@ -192,18 +354,21 @@ __device__ __forceinline__ void serve(const int* __restrict__ idx,
   const unsigned rest = head + (n - body_end);
   for (unsigned b = tid; b < rest; b += nthreads * kLookups) {
     unsigned p[kLookups];
+    Raw r[kLookups];
     int j[kLookups];
     float v[kLookups];
 #pragma unroll
     for (int k = 0; k < kLookups; ++k) {
       const unsigned q = b + k * nthreads;
       p[k] = q < head ? q : body_end + (q - head);
-      j[k] = q < rest ? __ldcs(idx + p[k]) : 0;
+      r[k] = q < rest ? src.one(p[k]) : Raw{0, 0};
     }
     go();
 #pragma unroll
-    for (int k = 0; k < kLookups; ++k)
+    for (int k = 0; k < kLookups; ++k) {
+      j[k] = src.at(r[k]);
       if (b + k * nthreads < rest) v[k] = fetch(j[k], p[k]);
+    }
 #pragma unroll
     for (int k = 0; k < kLookups; ++k)
       if (b + k * nthreads < rest) __stcs(out + p[k], v[k]);
@@ -228,24 +393,53 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar,
   return done != 0;
 }
 
-// Stages nrows segments of seg floats, src + k * stride -> dst + k * seg,
-// into shared memory by asynchronous copy. Where every segment starts
-// 16-byte aligned (src aligned; for several rows also seg and stride
-// multiples of 4), the 16-byte multiple of one segment goes by one TMA
-// bulk copy completing on bar, and several rows go by cp.async, one
-// 16-byte request a chunk from all the threads (a TMA bulk copy would
-// take one request a row, each as slow to issue as a whole band:
-// PERF.md); the rest (all of it otherwise) by the threads' own loads. bar
-// counts blockDim.x + 1 arrivals: thread 0's with the expected bytes, and
-// every thread's once its own loads are stored or its cp.async requests
-// have landed, so wait_stage(bar) returns once the whole stage is in
-// shared memory. Called by every thread of the block, once a launch (the
-// barrier is new each launch).
+// Thread 0's part of a stage's barrier: count arrivals (thread 0's own,
+// which comes with the bytes the copies will bring, and one a thread).
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count,
+                                          uint32_t bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar)
+               : "memory");
+}
+
+// One TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) into this block's shared memory, completing on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Stages nrows segments of seg entries, src + k * stride -> dst + k *
+// seg, into shared memory by asynchronous copy. Where every segment
+// starts 16-byte aligned (src aligned; for several rows also seg and
+// stride multiples of 16 bytes), the 16-byte multiple of one segment goes
+// by one TMA bulk copy completing on bar, and several rows go by
+// cp.async, one 16-byte request a chunk from all the threads (a TMA bulk
+// copy would take one request a row, each as slow to issue as a whole
+// band: PERF.md); the rest (all of it otherwise) by the threads' own
+// loads. bar counts blockDim.x + 1 arrivals: thread 0's with the expected
+// bytes, and every thread's once its own loads are stored or its cp.async
+// requests have landed, so wait_stage(bar) returns once the whole stage
+// is in shared memory. Called by every thread of the block, once a launch
+// (the barrier is new each launch).
 // A stage that leaves no room for the barrier's 8 bytes (a table of the
 // full 232,448 bytes staged whole) comes with bar null: the threads load
 // it all themselves and meet at __syncthreads.
-__device__ void stage_rows(float* dst, const float* src, int nrows,
-                           int seg, int stride, uint64_t* bar) {
+template <typename T>
+__device__ void stage_rows(T* dst, const T* src, int nrows, int seg,
+                           int stride, uint64_t* bar) {
+  constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));
   if (bar == nullptr) {
     for (int e = threadIdx.x; e < nrows * seg; e += blockDim.x) {
       const int k = e / seg;
@@ -254,48 +448,37 @@ __device__ void stage_rows(float* dst, const float* src, int nrows,
     __syncthreads();
     return;
   }
-  const bool aligned = seg > 0 && aligned16(src) &&
-                       (nrows == 1 || (seg % 4 == 0 && stride % 4 == 0));
+  const bool aligned =
+      seg > 0 && aligned16(src) &&
+      (nrows == 1 || (seg % kPer16 == 0 && stride % kPer16 == 0));
   const bool by_tma = aligned && nrows == 1;
   const bool by_lsu = aligned && !by_tma;
-  const int seg_bulk = aligned ? seg & ~3 : 0;
+  const int seg_bulk = aligned ? seg & ~(kPer16 - 1) : 0;
   const uint32_t b = smem_u32(bar);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-                 :: "r"(b), "r"(blockDim.x + 1) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    const uint32_t bytes =
-        by_tma ? static_cast<uint32_t>(nrows) * seg_bulk * 4 : 0;
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(b), "r"(bytes) : "memory");
-  }
+  if (threadIdx.x == 0)
+    mbar_init(b, blockDim.x + 1,
+              by_tma ? static_cast<uint32_t>(nrows * seg_bulk * sizeof(T))
+                     : 0u);
   __syncthreads();
   if (by_lsu) {
-    const int chunks = seg_bulk / 4;           // 16-byte chunks a row
+    const int chunks = seg_bulk / kPer16;      // 16-byte chunks a row
     for (int e = threadIdx.x; e < nrows * chunks; e += blockDim.x) {
       const int k = e / chunks;
-      const int c = 4 * (e - k * chunks);
+      const int c = kPer16 * (e - k * chunks);
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
                    :: "r"(smem_u32(dst + k * seg + c)),
                       "l"(src + static_cast<size_t>(k) * stride + c)
                    : "memory");
     }
-    // seg is a multiple of 4 here: nothing is left for own loads.
+    // seg is a multiple of 16 bytes here: nothing is left for own loads.
     asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
                  :: "r"(b) : "memory");
     return;
   }
-  if (by_tma) {
-    for (int k = threadIdx.x; k < nrows; k += blockDim.x) {
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];"
-          :: "r"(smem_u32(dst + k * seg)),
-             "l"(src + static_cast<size_t>(k) * stride),
-             "r"(seg_bulk * 4), "r"(b)
-          : "memory");
-    }
+  if (by_tma && seg_bulk > 0) {
+    for (int k = threadIdx.x; k < nrows; k += blockDim.x)
+      bulk_copy(dst + k * seg, src + static_cast<size_t>(k) * stride,
+                seg_bulk * sizeof(T), b);
   }
   const int rest = seg - seg_bulk;
   for (int e = threadIdx.x; e < nrows * rest; e += blockDim.x) {
@@ -303,8 +486,7 @@ __device__ void stage_rows(float* dst, const float* src, int nrows,
     const int c = seg_bulk + (e - k * rest);
     dst[k * seg + c] = __ldg(src + static_cast<size_t>(k) * stride + c);
   }
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(b)
-               : "memory");
+  mbar_arrive(b);
 }
 
 __device__ __forceinline__ void wait_stage(uint64_t* bar) {
@@ -333,12 +515,14 @@ __device__ __forceinline__ float ld_cluster(const float* local, int rank) {
   return v;
 }
 
-// A thread's rank in a grid-wide walk: consecutive warps of ranks go to
-// different blocks first, so that a launch with fewer lookups than
-// threads spreads them over every block (SM), while each warp's index
-// and output accesses stay contiguous. blockDim.x is a multiple of 32.
-__device__ __forceinline__ unsigned spread_rank() {
-  return ((threadIdx.x >> 5) * gridDim.x + blockIdx.x) * 32 +
+// A thread's rank in a walk over `units` units of blockDim.x threads
+// (unit u = blockIdx.x / per, where per blocks share one walk):
+// consecutive warps of ranks go to different units first, so that a
+// launch with fewer lookups than threads spreads them over every unit,
+// while each warp's index and output accesses stay contiguous.
+// blockDim.x is a multiple of 32.
+__device__ __forceinline__ unsigned spread_rank(unsigned per = 1) {
+  return ((threadIdx.x >> 5) * (gridDim.x / per) + blockIdx.x / per) * 32 +
          (threadIdx.x & 31);
 }
 
@@ -351,15 +535,19 @@ __device__ __forceinline__ void cluster_sync_thread() {
 
 // ------------------------------ kernels ------------------------------- //
 
-template <typename T>
+// G1, and G4's device-memory route (Src Idx2d).
+template <typename T, typename Src>
 __global__ void __launch_bounds__(kFlatThreads)
-gather_flat(const T* __restrict__ table, const int* __restrict__ idx,
-            float* __restrict__ out, int n, int n_table, int clamp) {
-  serve(idx, out, static_cast<unsigned>(n), spread_rank(),
+gather_flat(const T* __restrict__ table, Src src, float* __restrict__ out,
+            int n) {
+  serve(src, out, static_cast<unsigned>(n), spread_rank(),
         gridDim.x * kFlatThreads,
         [=](int j, unsigned) {
-          if (clamp) j = clip_index(j, n_table);
-          return static_cast<float>(__ldg(&table[j]));
+          if constexpr (Src::kFills) {
+            return ldg_if(&table[j], j >= 0, fill_nan());
+          } else {
+            return static_cast<float>(__ldg(&table[j]));
+          }
         },
         [] {});
 }
@@ -370,7 +558,7 @@ gather_flat(const T* __restrict__ table, const int* __restrict__ idx,
 __global__ void __cluster_dims__(kCluster, 1, 1)
 __launch_bounds__(kBandThreads)
 gather_flat_cluster(const float* __restrict__ table,
-                    const int* __restrict__ idx, float* __restrict__ out,
+                    FlatIdx<true, kFill> src, float* __restrict__ out,
                     int n_table, int share, int n) {
   extern __shared__ __align__(16) float stage[];
   uint64_t* bar = stage_barrier(stage, share);
@@ -378,18 +566,35 @@ gather_flat_cluster(const float* __restrict__ table,
   const int rank = static_cast<int>(cluster.block_rank());
   const int lo = min(rank * share, n_table);
   stage_rows(stage, table + lo, 1, min(share, n_table - lo), 0, bar);
-  serve(idx, out, static_cast<unsigned>(n), spread_rank(),
+  serve(src, out, static_cast<unsigned>(n), spread_rank(),
         gridDim.x * kBandThreads,
         [&](int j, unsigned) {
-          j = clampi(j, n_table - 1);
-          const int owner = j / share;
-          return ld_cluster(stage + (j - owner * share), owner);
+          const int q = j < 0 ? 0 : j;
+          const int owner = q / share;
+          return or_nan(j, ld_cluster(stage + (q - owner * share), owner));
         },
         [&] {
           wait_stage(bar);
           cluster_sync_thread();
         });
   cluster_sync_thread();      // no share leaves while a peer reads it
+}
+
+// G4's staged route: every block stages the table's first `share` floats
+// (a multiple of 4; all of a table that fits) and reads a position past
+// them from device memory.
+__global__ void __launch_bounds__(kStageThreads)
+gather_2d_staged(const float* __restrict__ table, Idx2d src,
+                 float* __restrict__ out, int n_table, int share, int n) {
+  extern __shared__ __align__(16) float stage[];
+  uint64_t* bar = stage_barrier(stage, share);
+  stage_rows(stage, table, 1, min(share, n_table), 0, bar);
+  serve(src, out, static_cast<unsigned>(n), spread_rank(),
+        gridDim.x * kStageThreads,
+        [&](int j, unsigned) {
+          return ldg_if(&table[j], j >= share, stage[min(j, share - 1)]);
+        },
+        [&] { wait_stage(bar); });
 }
 
 // G2 lane (mode 1): block b serves outputs [b * per, (b + 1) * per) and
@@ -412,10 +617,11 @@ gather_axis_band(const float* __restrict__ table,
     const int r1 = static_cast<int>((begin + count - 1) / icols) + 1;
     stage_rows(stage, table + static_cast<size_t>(r0) * cols, 1,
                (r1 - r0) * cols, 0, bar);
-    serve(idx + begin, out + begin, count, threadIdx.x, kBandThreads,
+    serve(FlatIdx<true, kFill>{idx + begin, cols}, out + begin, count,
+          threadIdx.x, kBandThreads,
           [&](int j, unsigned p) {
             const int r = static_cast<int>((begin + p) / icols) - r0;
-            return stage[r * cols + clampi(j, cols - 1)];
+            return or_nan(j, stage[r * cols + (j < 0 ? 0 : j)]);
           },
           [&] { wait_stage(bar); });
     return;
@@ -446,8 +652,10 @@ gather_axis_band(const float* __restrict__ table,
       pending = false;
     }
 #pragma unroll
-    for (int k = 0; k < kBandCols; ++k)
-      v[k] = k < cw ? stage[clampi(j[k], rows - 1) * cw + k] : 0.0f;
+    for (int k = 0; k < kBandCols; ++k) {
+      const int t = fill_index(j[k], rows);
+      v[k] = k >= cw ? 0.0f : or_nan(t, stage[(t < 0 ? 0 : t) * cw + k]);
+    }
     if (vec) {
       __stcs(reinterpret_cast<float4*>(out + base),
              make_float4(v[0], v[1], v[2], v[3]));
@@ -460,37 +668,22 @@ gather_axis_band(const float* __restrict__ table,
   if (pending) wait_stage(bar);
 }
 
-__global__ void __launch_bounds__(kSmemThreads)
-gather_smem_u16(const uint16_t* __restrict__ table, const int* __restrict__ idx,
-                float* __restrict__ out, int n, int n_table) {
-  extern __shared__ uint16_t mm[];
-  for (int k = threadIdx.x; k < n_table; k += kSmemThreads)
-    mm[k] = table[k];
-  __syncthreads();
-  for (int p = blockIdx.x * kSmemThreads + threadIdx.x; p < n;
-       p += gridDim.x * kSmemThreads) {
-    const int j = clampi(__ldg(&idx[p]), n_table - 1);
-    out[p] = static_cast<float>(mm[j]) / 1000.0f;
-  }
-}
-
-__global__ void __launch_bounds__(kFlatThreads)
-gather_2d(const float* __restrict__ table, const int* __restrict__ vi,
-          const int* __restrict__ ui, float* __restrict__ out, int n,
-          int cols) {
-  const int p = blockIdx.x * kFlatThreads + threadIdx.x;
-  if (p >= n) return;
-  out[p] = __ldg(&table[__ldg(&vi[p]) * cols + __ldg(&ui[p])]);
-}
-
-int flat_blocks(int n) { return (n + kFlatThreads - 1) / kFlatThreads; }
-
-// Staged kernels: enough blocks for kLookupsPerThread lookups a thread,
-// at most one per SM (a block's table fills most of an SM's shared memory).
-int smem_blocks(int n, int nsm) {
-  const int want = (n + kSmemThreads * kLookupsPerThread - 1) /
-                   (kSmemThreads * kLookupsPerThread);
-  return want < 1 ? 1 : (want > nsm ? nsm : want);
+// G3: the uint16 image staged whole in every block.
+__global__ void __launch_bounds__(kStageThreads)
+gather_smem_u16(const uint16_t* __restrict__ table,
+                const int* __restrict__ idx, float* __restrict__ out, int n,
+                int n_table, int bar_at) {
+  extern __shared__ __align__(16) float stage[];
+  uint16_t* mm = reinterpret_cast<uint16_t*>(stage);
+  uint64_t* bar = stage_barrier(stage, bar_at);
+  stage_rows(mm, table, 1, n_table, 0, bar);
+  serve(FlatIdx<false, kFill>{idx, n_table}, out,
+        static_cast<unsigned>(n),
+        spread_rank(), gridDim.x * kStageThreads,
+        [&](int j, unsigned) {
+          return or_nan(j, static_cast<float>(mm[j < 0 ? 0 : j]) / 1000.0f);
+        },
+        [&] { wait_stage(bar); });
 }
 
 // Dynamic shared memory above 48 KB needs the kernel's attribute raised
@@ -521,19 +714,18 @@ int stage_bytes(int floats, int* bar_at) {
 // G1's persistent grid: enough blocks for kLookups lookups a thread, but
 // a block an SM while there is a warp's worth of work for each (spread by
 // spread_rank), and at most as many as the SMs hold at once (asked once a
-// table type, with the L1 cache given all of the SM's shared memory).
-template <typename T>
-cudaError_t launch_flat(const void* table, const int* idx, float* out,
-                        int n, int n_table, int clamp, int nsm,
-                        cudaStream_t s) {
+// kernel, with the L1 cache given all of the SM's shared memory).
+template <typename T, typename Src>
+cudaError_t launch_flat(const T* table, Src src, float* out, int n,
+                        int nsm, cudaStream_t s) {
   static int per_sm = 0;
   if (per_sm == 0) {
     cudaError_t err = cudaFuncSetAttribute(
-        gather_flat<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        gather_flat<T, Src>, cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxL1);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, gather_flat<T>, kFlatThreads, 0);
+          &per_sm, gather_flat<T, Src>, kFlatThreads, 0);
     if (err != cudaSuccess) {
       cudaGetLastError();
       per_sm = 0;
@@ -548,25 +740,75 @@ cudaError_t launch_flat(const void* table, const int* idx, float* out,
   const long long want = full > spread ? full : spread;
   const long long most = static_cast<long long>(nsm) * per_sm;
   const int blocks = static_cast<int>(want < most ? want : most);
-  gather_flat<T><<<blocks < 1 ? 1 : blocks, kFlatThreads, 0, s>>>(
-      static_cast<const T*>(table), idx, out, n, n_table, clamp);
+  gather_flat<T, Src><<<blocks < 1 ? 1 : blocks, kFlatThreads, 0, s>>>(
+      table, src, out, n);
   return cudaGetLastError();
+}
+
+// Blocks of kStageThreads for one group of kLookups a thread, at most
+// `most`: a staged kernel's grid (each block pays for a stage).
+int stage_blocks(int n, int most) {
+  const long long groups = (static_cast<long long>(n) + kLookups - 1) /
+                           kLookups;
+  const long long want = (groups + kStageThreads - 1) / kStageThreads;
+  return static_cast<int>(want < most ? (want < 1 ? 1 : want) : most);
+}
+
+// G4's staged route: the table's first `share` floats at most, rounded up
+// to 16 bytes with the barrier behind them, one block an SM; a stage that
+// does not fit a block is refused (allow_smem).
+cudaError_t launch_2d_staged(const float* table, Idx2d src, float* out,
+                             int n_table, int share, int n, int nsm,
+                             cudaStream_t s) {
+  const int floats = ((share < n_table ? share : n_table) + 3) & ~3;
+  const int bytes = 4 * floats + 8;
+  const cudaError_t err = allow_smem(gather_2d_staged, bytes);
+  if (err != cudaSuccess) return err;
+  gather_2d_staged<<<stage_blocks(n, nsm), kStageThreads, bytes, s>>>(
+      table, src, out, n_table, floats, n);
+  return cudaGetLastError();
+}
+
+template <typename T, int kMode>
+cudaError_t launch_flat_mode(const void* table, const int* idx, float* out,
+                             int n, int n_table, int nsm, cudaStream_t s) {
+  return launch_flat(static_cast<const T*>(table),
+                     FlatIdx<true, kMode>{idx, n_table}, out, n, nsm, s);
+}
+
+template <typename T>
+cudaError_t launch_flat_typed(const void* table, const int* idx, float* out,
+                              int n, int n_table, int mode, int nsm,
+                              cudaStream_t s) {
+  switch (mode) {
+    case kPromise:
+      return launch_flat_mode<T, kPromise>(table, idx, out, n, n_table, nsm,
+                                           s);
+    case kClip:
+      return launch_flat_mode<T, kClip>(table, idx, out, n, n_table, nsm, s);
+    case kFill:
+      return launch_flat_mode<T, kFill>(table, idx, out, n, n_table, nsm, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// table_type: 0 float32, 1 int16, 2 uint16.
+// table_type: 0 float32, 1 int16, 2 uint16; mode: a GatherMode.
 extern "C" int slb_gather_flat(const void* table, int table_type,
                                const int* idx, float* out, int n, int n_table,
-                               int clamp, int nsm, void* stream) {
+                               int mode, int nsm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (table_type == 0) {
-    err = launch_flat<float>(table, idx, out, n, n_table, clamp, nsm, s);
+    err = launch_flat_typed<float>(table, idx, out, n, n_table, mode, nsm, s);
   } else if (table_type == 1) {
-    err = launch_flat<int16_t>(table, idx, out, n, n_table, clamp, nsm, s);
+    err = launch_flat_typed<int16_t>(table, idx, out, n, n_table, mode, nsm,
+                                     s);
   } else if (table_type == 2) {
-    err = launch_flat<uint16_t>(table, idx, out, n, n_table, clamp, nsm, s);
+    err = launch_flat_typed<uint16_t>(table, idx, out, n, n_table, mode, nsm,
+                                      s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -592,15 +834,15 @@ extern "C" int slb_gather_axis_smem_f32(const float* table, const int* idx,
   const int n_table = rows * cols;
   cudaError_t err;
   if (mode == 0) {
+    // A share is at most 1/kCluster of the table plus 16 bytes: its
+    // barrier always fits behind it, at float `share` (a multiple of 4).
     const int share = ((n_table + kCluster - 1) / kCluster + 3) & ~3;
-    const int clusters = (nsm + kCluster - 1) / kCluster;
-    // A share is at most 1/8 of the table plus 16 bytes: its barrier
-    // always fits behind it, at float `share` (a multiple of 4).
     const int bytes = 4 * share + 8;
     err = allow_smem(gather_flat_cluster, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
+    const int clusters = (nsm + kCluster - 1) / kCluster;
     gather_flat_cluster<<<clusters * kCluster, kBandThreads, bytes, s>>>(
-        table, idx, out, n_table, share, n);
+        table, FlatIdx<true, kFill>{idx, n_table}, out, n_table, share, n);
   } else if (mode == 1) {
     const int per = (n / nsm) & ~3;
     const int piece = per < 4 ? 4 : per;
@@ -630,23 +872,35 @@ extern "C" int slb_gather_axis_smem_f32(const float* table, const int* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// G3: one block an SM. A table of the full 232,448 bytes leaves no room
+// for the barrier: its blocks load it themselves.
 extern "C" int slb_gather_smem_u16(const uint16_t* table, const int* idx,
                                    float* out, int n, int n_table, int nsm,
                                    void* stream) {
-  const int bytes = n_table * static_cast<int>(sizeof(uint16_t));
-  cudaError_t err = allow_smem(gather_smem_u16, bytes);
+  if (nsm < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int bar_at;
+  const int bytes = stage_bytes((n_table + 1) / 2, &bar_at);
+  const cudaError_t err = allow_smem(gather_smem_u16, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gather_smem_u16<<<smem_blocks(n, nsm), kSmemThreads, bytes,
-                    static_cast<cudaStream_t>(stream)>>>(
-      table, idx, out, n, n_table);
+  gather_smem_u16<<<stage_blocks(n, nsm), kStageThreads, bytes, s>>>(
+      table, idx, out, n, n_table, bar_at);
   return static_cast<int>(cudaGetLastError());
 }
 
+// G4. share 0: the device-memory route (G1's grid); otherwise the staged
+// route, every block staging the table's first `share` floats
+// (launch_2d_staged). The wrapper picks the route and the share.
 extern "C" int slb_gather_2d_f32(const float* table, const int* vi,
-                                 const int* ui, float* out, int n, int cols,
+                                 const int* ui, float* out, int n, int rows,
+                                 int cols, int share, int nsm,
                                  void* stream) {
-  gather_2d<<<flat_blocks(n), kFlatThreads, 0,
-              static_cast<cudaStream_t>(stream)>>>(table, vi, ui, out, n,
-                                                   cols);
-  return static_cast<int>(cudaGetLastError());
+  if (rows < 1 || cols < 1 || share < 0 || nsm < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Idx2d src{vi, ui, rows, cols};
+  if (share == 0)
+    return static_cast<int>(launch_flat(table, src, out, n, nsm, s));
+  return static_cast<int>(
+      launch_2d_staged(table, src, out, rows * cols, share, n, nsm, s));
 }

@@ -7,15 +7,17 @@ from a table held in VMEM (flat ``take``, lane and sublane
 2-D advanced index). On Hopper every thread loads from any address, so
 whether a gather compiles means nothing here. This tool asks instead how
 fast the card serves each of those gathers, and from which memory: device
-memory through L2 (kernel G1, G4) or a table staged whole into shared
-memory (G2, G3). It runs the same probes at the JAX tool's shapes:
+memory through L2 (kernel G1, G4's device-memory route) or a table
+staged into shared memory (G2, G3, G4's staged route). It runs the same probes at the JAX tool's shapes:
 
 * ``probe_gathers`` (P1): a f32 [256, 128] table, [256, 128] indices;
-  the flat, lane and sublane forms through G2, the flat one through G1;
+  the flat, lane and sublane forms through G2, the flat one through G1
+  in mode "fill" (the Pallas body's ``take``);
 * ``probe_wide_gather`` (P2, P3): 2,097,152 lookups into the 240x320
-  depth image: G1 on the f32 metre image in device memory, G3 on the
-  uint16 millimetre image in shared memory (bit-equal to G1), G4 as the
-  2-D index ``t[vi, ui]``;
+  depth image: G1 in mode "fill" on the f32 metre image in device
+  memory, G3 on the uint16 millimetre image in shared memory (bit-equal
+  to G1), G4 as the 2-D index ``t[vi, ui]`` (the image's first 58,108
+  floats staged in every block, the rest read from device memory);
 * ``probe_pallas_reduce`` / ``probe_pallas_bilateral``: K2 and K1 at
   240x320 against their plain twins;
 * ``probe_gather_modes``: G1 with ``clamp`` on and off (``mode="clip"``
@@ -26,8 +28,10 @@ Every entry holds ``ok``, ``max_abs_err`` of the kernel against its plain
 twin on the same inputs, ``count`` (lookups or pixels), ``bytes`` (index
 and output once, table once), ``ns_per_elem`` (kernel),
 ``plain_ns_per_elem`` (the twin), ``library_ns_per_elem`` (one PyTorch
-call computing the same function: for a gather that is the twin itself,
-the same measurement; none exists for K1, K2), ``bound_ns_per_elem``
+call computing the same function on the probe's in-range indices: the
+indexing call at the twin's core, without the glue that gives NaN or
+clips out-of-range indices, or for the clip and pib lines the twin
+itself; none exists for K1, K2), ``bound_ns_per_elem``
 (``bytes`` over 3.35 TB/s, or operations over 67 TFLOP/s where larger)
 and ``l2_resident`` (whether those bytes fit the 50 MB L2, so that
 back-to-back launches find them warm; the 16.7 M-lookup cases do not).
@@ -81,11 +85,14 @@ def measure(kernel: Callable[[], torch.Tensor],
             twin: Callable[[], torch.Tensor], count: int, nbytes: int,
             ops: float = 0.0, tol: Optional[dict] = None,
             twin_is_library: bool = True, reps: int = 100,
-            sectors: Optional[int] = None) -> dict:
+            sectors: Optional[int] = None,
+            library: Optional[Callable[[], torch.Tensor]] = None) -> dict:
     """One probe entry: the kernel against its plain twin on the same
-    inputs (exact unless ``tol``), timed on the card. ``sectors``: the
-    L2 sector bytes a device-memory gather moves (``l2_sectors``), kept
-    beside the byte bound with the rate the kernel's time implies."""
+    inputs (exact unless ``tol``), timed on the card. The library time is
+    ``library``'s where given, else the twin's where ``twin_is_library``.
+    ``sectors``: the L2 sector bytes a device-memory gather moves
+    (``l2_sectors``), kept beside the byte bound with the rate the
+    kernel's time implies."""
     got, want = kernel(), twin()
     err = max_abs_err(got, want)
     ok = (err == 0.0 if tol is None else
@@ -103,7 +110,10 @@ def measure(kernel: Callable[[], torch.Tensor],
         entry.update(ns_per_elem=k_ms * 1e6 / count,
                      plain_ns_per_elem=p_ms * 1e6 / count,
                      host_bound=k_paced)
-        if twin_is_library:
+        if library is not None:
+            entry["library_ns_per_elem"] = per_launch_ms(
+                library, max(5, reps // 5))[0] * 1e6 / count
+        elif twin_is_library:
             entry["library_ns_per_elem"] = entry["plain_ns_per_elem"]
     if sectors is not None:
         entry["l2_sector_bytes"] = sectors
@@ -135,6 +145,15 @@ def generator(device: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def library_gather(table: torch.Tensor, idx: torch.Tensor,
+                   mode: str = "flat") -> torch.Tensor:
+    """The one PyTorch call that computes a flat, lane or sublane gather
+    of in-range indices: the library yardstick."""
+    if mode == "flat":
+        return table.reshape(-1)[idx]
+    return torch.gather(table, 1 if mode == "lane" else 0, idx)
+
+
 def probe_gathers(out: dict, device: torch.device, seed: int = 0) -> None:
     """P1: flat / lane / sublane gathers from a [256, 128] f32 table held
     in shared memory (G2), and the flat one from device memory (G1)."""
@@ -148,20 +167,29 @@ def probe_gathers(out: dict, device: torch.device, seed: int = 0) -> None:
         report(out, name, measure(
             lambda: gather.gather_axis_smem(table, idx, mode),
             lambda: gather.gather_axis_plain(table, idx, mode),
-            idx.numel(), 3 * table.numel() * 4))
+            idx.numel(), 3 * table.numel() * 4,
+            library=lambda: library_gather(table, idx, mode)))
         if mode == "flat":
             report(out, "take_flat_device", measure(
-                lambda: gather.gather_flat(table, idx),
-                lambda: gather.gather_flat_plain(table, idx),
+                lambda: gather.gather_flat(table, idx, mode="fill"),
+                lambda: gather.gather_flat_plain(table, idx, mode="fill"),
                 idx.numel(), 3 * table.numel() * 4,
-                sectors=l2_sectors(idx.numel())))
+                sectors=l2_sectors(idx.numel()),
+                library=lambda: library_gather(table, idx)))
+
+
+def library_u16(mm: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """G3's library yardstick: metres of the widened ``mm[idx]``."""
+    return gather.mm_to_meters(mm.reshape(-1).to(torch.float32)[idx])
 
 
 def probe_wide_gather(out: dict, device: torch.device, n: int = WIDE_N,
                       seed: int = 1) -> None:
     """P2/P3: ``n`` lookups into the whole 240x320 depth image: G1 on the
     f32 metres in device memory, G3 on the uint16 millimetres in shared
-    memory (must equal G1 bit for bit), G4 as ``t[vi, ui]``."""
+    memory (must equal G1 bit for bit), G4 as ``t[vi, ui]``. The library
+    lines time the indexing calls of the twins' cores: ``flat[idx]``,
+    ``mm_to_meters`` of the widened ``mm[idx]`` and ``depth[vi, ui]``."""
     gen = generator(device, seed)
     rng = np.random.default_rng(seed)
     mm = torch.from_numpy(rng.integers(0, 5000, (H, W)).astype(np.uint16)) \
@@ -174,20 +202,24 @@ def probe_wide_gather(out: dict, device: torch.device, n: int = WIDE_N,
     ui = randint(gen, 0, W, shape, device)
     io = 8 * count
     report(out, "wide_gather_device", measure(
-        lambda: gather.gather_flat(depth, idx),
-        lambda: gather.gather_flat_plain(depth, idx), count,
-        io + depth.numel() * 4, sectors=l2_sectors(count)))
+        lambda: gather.gather_flat(depth, idx, mode="fill"),
+        lambda: gather.gather_flat_plain(depth, idx, mode="fill"), count,
+        io + depth.numel() * 4, sectors=l2_sectors(count),
+        library=lambda: library_gather(depth, idx)))
     entry = measure(lambda: gather.gather_smem_u16(mm, idx),
                     lambda: gather.gather_u16_plain(mm, idx), count,
-                    io + mm.numel() * 2, ops=count)
+                    io + mm.numel() * 2, ops=count,
+                    library=lambda: library_u16(mm, idx))
     entry["equals_device_f32"] = bool(torch.equal(
-        gather.gather_smem_u16(mm, idx), gather.gather_flat(depth, idx)))
+        gather.gather_smem_u16(mm, idx),
+        gather.gather_flat(depth, idx, mode="fill")))
     entry["ok"] = entry["ok"] and entry["equals_device_f32"]
     report(out, "wide_gather_smem_u16", entry)
     report(out, "adv2d_gather", measure(
         lambda: gather.gather_2d(depth, vi, ui),
         lambda: gather.gather_2d_plain(depth, vi, ui), count,
-        io + 4 * count + depth.numel() * 4))
+        io + 4 * count + depth.numel() * 4,
+        library=lambda: depth[vi, ui]))
 
 
 def probe_pallas_reduce(out: dict, device: torch.device, seed: int = 2) -> None:

@@ -2,7 +2,8 @@
 K2 and K2F (track fused into K2) against their plain twins at the main
 path's shapes, one ICP level with no host read, mm2meters as IEEE
 division, G1-G4 against their twins at the gather probes' shapes and on
-the edge cases of the redesigned G1 and G2, and a short end-to-end run
+the edge cases of the redesigned kernels (out-of-range indices as the
+Pallas bodies treat them, G4's two routes), and a short end-to-end run
 through the CLI.
 
 Imports torch and the port only (no JAX), so it runs on the card's
@@ -34,6 +35,7 @@ from slambench_tpu_torch.pipeline import cv_predict  # noqa: E402
 from slambench_tpu_torch.ops.track import track  # noqa: E402
 from slambench_tpu_torch.ops.vertex import depth2vertex, vertex2normal  # noqa: E402
 from slambench_tpu_torch.policy import apply_precision_policy  # noqa: E402
+from slambench_tpu_torch.tools.gather_probe import equal_nan  # noqa: E402
 from slambench_tpu_torch.tools.mosaic_probe import K1_TOL  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -426,18 +428,19 @@ def test_g2_shared_memory_gathers_equal_twin(dev, tables, mode, hi):
     assert torch.equal(got, gather.gather_axis_plain(t, i, mode))
 
 
-@pytest.mark.parametrize("table,n,clamp", [
-    ("p1", 256 * 128, False), ("depth", 2 * 1024 * 1024, False),
-    ("mm", 2 * 1024 * 1024, False), ("vol", 76_800, False),
-    ("vol", 256 ** 3, False), ("vol", 256 ** 3, True),
-    ("depth", 76_800, True)])
-def test_g1_flat_gather_equals_twin(dev, tables, table, n, clamp):
+@pytest.mark.parametrize("table,n,mode", [
+    ("p1", 256 * 128, None), ("depth", 2 * 1024 * 1024, None),
+    ("mm", 2 * 1024 * 1024, None), ("vol", 76_800, None),
+    ("vol", 256 ** 3, None), ("vol", 256 ** 3, "clip"),
+    ("depth", 76_800, "clip"), ("vol", 256 ** 3, "fill"),
+    ("depth", 2 * 1024 * 1024, "fill")])
+def test_g1_flat_gather_equals_twin(dev, tables, table, n, mode):
     t = tables[table]
-    lo, hi = (-1000, t.numel() + 1000) if clamp else (0, t.numel())
+    lo, hi = (-1000, t.numel() + 1000) if mode else (0, t.numel())
     i = _ri(dev, lo, hi, (n,), seed=n)
     got = _launch_once("gather_flat",
-                       lambda: gather.gather_flat(t, i, clamp))
-    assert torch.equal(got, gather.gather_flat_plain(t, i, clamp))
+                       lambda: gather.gather_flat(t, i, mode=mode))
+    assert equal_nan(got, gather.gather_flat_plain(t, i, mode=mode))
 
 
 def test_g3_u16_shared_memory_equals_g1_bit_for_bit(dev, tables):
@@ -445,7 +448,8 @@ def test_g3_u16_shared_memory_equals_g1_bit_for_bit(dev, tables):
     got = _launch_once("gather_smem_u16",
                        lambda: gather.gather_smem_u16(tables["mm"], i))
     assert torch.equal(got, gather.gather_u16_plain(tables["mm"], i))
-    assert torch.equal(got, gather.gather_flat(tables["depth"], i))
+    assert torch.equal(got, gather.gather_flat(tables["depth"], i,
+                                               mode="fill"))
 
 
 def test_mm_to_meters_on_card_is_ieee_division(tables):
@@ -454,28 +458,37 @@ def test_mm_to_meters_on_card_is_ieee_division(tables):
                        gather.mm_to_meters(tables["mm"].cpu()))
 
 
-def test_g4_2d_gather_equals_twin(dev, tables):
-    vi = _ri(dev, 0, 240, (1024, 2048), seed=4)
-    ui = _ri(dev, 0, 320, (1024, 2048), seed=5)
-    got = _launch_once("gather_2d",
-                       lambda: gather.gather_2d(tables["depth"], vi, ui))
-    assert torch.equal(got, gather.gather_2d_plain(tables["depth"], vi, ui))
+@pytest.mark.parametrize("shape,route", [((240, 320), "gather_2d_staged"),
+                                         ((720, 1280), "gather_2d_device")])
+def test_g4_2d_gather_equals_twin(dev, shape, route):
+    """P3's image on the staged route (76% of it in every block), and a
+    720x1280 image (of which a block would hold 6%) from device memory."""
+    t = torch.rand(shape, device=dev)
+    vi = _ri(dev, 0, shape[0], (1024, 2048), seed=4)
+    ui = _ri(dev, 0, shape[1], (1024, 2048), seed=5)
+    got = _launch_once(route, lambda: gather.gather_2d(t, vi, ui))
+    assert torch.equal(got, gather.gather_2d_plain(t, vi, ui))
 
 
 def test_g1_g2_edge_cases_equal_twins(dev):
     """The redesigned kernels' own edge cases (tools/gather_probe.py:
-    edge_cases): misaligned indices, 1, 3 and 4k+3 lookups, clamping
-    with indices below -n, in [-n, 0) and at or above n, G2 tables that
-    do not divide its bands or its cluster's split, the full 232,448
-    bytes in two rows, and G1's all-scalar way through the C entry."""
+    edge_cases), G1-G4: misaligned indices, 1, 3 and 4k+3 lookups,
+    indices below -n, in [-n, 0), in range, at or above n and at the
+    int32 extremes, G2 tables that do not divide its bands or its
+    cluster's split, the full 232,448 bytes in two rows, G3 tables at
+    its cap and of no multiple of 16 bytes, G4 tables on both routes,
+    and G1's all-scalar way through the C entry. NaN must stand where
+    the twin has NaN."""
     from slambench_tpu_torch.tools.gather_probe import edge_cases
+    before = dict(gather.launches)
     differ = []
     for name, kernel, twin in edge_cases(dev):
         got, want = kernel(), twin()
         torch.cuda.synchronize()
-        if got.shape != want.shape or not torch.equal(got, want):
+        if not equal_nan(got, want):
             differ.append(name)
     assert not differ
+    assert all(gather.launches[k] > before[k] for k in gather.launches)
 
 
 def test_g2_flat_back_to_back_launches_equal_twin(dev, tables):
