@@ -68,6 +68,20 @@ the end the raw and the corrected trajectories are written as
 keyframe snapshots instead of the pose graph alone. A resumed run starts
 with an empty graph; a checkpoint does not hold it.
 
+``--mesh z:n`` runs the sharded step (``parallel/step.py:
+ShardedKFusion``) on an n-rank ``torch.distributed`` mesh, every frame
+as one fused window (as the JAX CLI runs its ``shard_map`` step). With n
+> 1 the CLI runs under ``torchrun --nproc-per-node n`` and refuses a
+world size other than n; rank 0 writes the log, the checkpoint and the
+summary. A line on stderr names the mesh (ranks, backend, device, halo
+route) and the ``--scan-chunk`` route: CUDA graph replays where the
+group's collectives can be captured (NCCL), else eager chunks. After
+every frame (and chunk) the ranks' poses are checked equal bit for bit;
+at the end rank 0 prints ``mesh summary: {json}`` (the collective tally
+of the last per-frame window against ``parallel/comm.py``'s account,
+the number of checks, each rank's hand-kernel launches). ``--keyframes``
+with ``--mesh`` is refused, as in JAX.
+
 The device is ``cuda`` unless ``--device cpu`` is given; a missing card
 is an error, never a quiet fallback to the CPU.
 
@@ -78,12 +92,13 @@ Usage:  python -m slambench_tpu_torch.frontend.benchmark -i scene.raw
         -o out.log [reference flags] [--fused] [--scan-chunk N]
         [--device cuda|cpu] [--stats] [--break-on-untracked]
         [--break-at-frame N] [--debug-nans] [--report-device]
-        [--keyframes] [--ba]
+        [--keyframes] [--ba] [--mesh z:n]
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
 import sys
@@ -95,12 +110,16 @@ import numpy as np
 import torch
 
 from slambench_tpu_torch.config import Configuration, parse_args
+from slambench_tpu_torch.ops.hopper import bilateral, reduce
 from slambench_tpu_torch.eval import xprof2log
 from slambench_tpu_torch.eval.trajectory import write_tum
 from slambench_tpu_torch.io.readers import make_reader
 from slambench_tpu_torch.models.keyframes import (
     KeyframeStore, PoseGraphKFusion,
 )
+from slambench_tpu_torch.parallel import comm, distributed
+from slambench_tpu_torch.parallel.mesh import Mesh, parse_mesh_spec
+from slambench_tpu_torch.parallel.step import ShardedKFusion
 from slambench_tpu_torch.pipeline import KFusion, KFusionState, frame_gates
 from slambench_tpu_torch.policy import (
     apply_precision_policy, device_report, resolve_device, synchronize,
@@ -114,8 +133,7 @@ HEADER = ("frame\tacquisition\tpreprocessing\ttracking\tintegration"
           "\traycasting\trendering\tcomputation\ttotal    \tX          "
           "\tY          \tZ         \ttracked   \tintegrated")
 
-# Front-end flags of the JAX CLI that this port does not implement yet
-# (the config option --mesh is refused by ``run``).
+# Front-end flags of the JAX CLI that this port does not implement yet.
 NOT_PORTED_FLAGS = ()
 
 ROW = ("%d\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f\t%.10f"
@@ -136,19 +154,22 @@ def make_power_monitor(device: torch.device) -> power_mod.PowerMonitor:
         raise SystemExit(1) from exc
 
 
-def make_kfusion(config: Configuration, reader,
-                 device: torch.device) -> KFusion:
+def make_kfusion(config: Configuration, reader, device: torch.device,
+                 mesh: Optional[Mesh] = None) -> KFusion:
     """The pipeline for a configuration and its opened reader: the
-    compute size and the camera scaled by the compute-size ratio."""
+    compute size and the camera scaled by the compute-size ratio; with a
+    mesh, this rank's ``ShardedKFusion`` (on the rank's device)."""
     in_w, in_h = reader.get_input_size()
     ratio = config.compute_size_ratio
     camera = tuple(c / ratio for c in (
         config.camera if config.camera_overrided else reader.get_k()))
-    return KFusion((in_w // ratio, in_h // ratio), config.volume_resolution,
-                   config.volume_size, config.init_pose, config.pyramid,
-                   camera, mu=config.mu, icp_threshold=config.icp_threshold,
-                   backend=config.backend, motion_model=config.motion_model,
-                   device=device)
+    args = ((in_w // ratio, in_h // ratio), config.volume_resolution,
+            config.volume_size, config.init_pose, config.pyramid, camera)
+    kwargs = dict(mu=config.mu, icp_threshold=config.icp_threshold,
+                  backend=config.backend, motion_model=config.motion_model)
+    if mesh is not None:
+        return ShardedKFusion(*args, mesh=mesh, **kwargs)
+    return KFusion(*args, device=device, **kwargs)
 
 
 def check_nans(phase: str, frame: int, before: KFusionState,
@@ -177,9 +198,29 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
     ``keyframes`` (or ``ba``, which implies it) the summary's
     ``posegraph`` holds the ``PoseGraphKFusion``. ``scan_chunk`` > 1
     batches steady-state frames (``--scan-chunk``)."""
+    mesh = None
     if config.mesh:
-        raise NotImplementedError(
-            "--mesh is not ported yet (ROADMAP.md, queue 1, item 4)")
+        if keyframes or ba:
+            raise SystemExit("--keyframes is not supported with --mesh "
+                             "(the sharded tier runs pure odometry)")
+        mesh = distributed.initialize(parse_mesh_spec(config.mesh), device)
+        device = mesh.device
+        fused = True               # one window a frame, as JAX's mesh CLI
+    try:
+        return _run(config, device, mesh, fused, max_frames, quiet, stats,
+                    break_on_untracked, break_at_frame, debug_nans,
+                    keyframes, ba, scan_chunk)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _run(config: Configuration, device: torch.device, mesh: Optional[Mesh],
+         fused: bool, max_frames: Optional[int], quiet: bool, stats: bool,
+         break_on_untracked: bool, break_at_frame: Optional[int],
+         debug_nans: bool, keyframes: bool, ba: bool,
+         scan_chunk: int) -> dict:
+    primary = distributed.is_primary()
     power = make_power_monitor(device) if stats else None
     apply_precision_policy()
     reader = make_reader(config)
@@ -188,7 +229,7 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
         config.print_arguments()
         raise SystemExit(1)
 
-    kf = make_kfusion(config, reader, device)
+    kf = make_kfusion(config, reader, device, mesh)
     pgkf = None
     if keyframes or ba:
         pgkf = PoseGraphKFusion(kf, KeyframeStore(),
@@ -196,8 +237,11 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
     frame = 0
     if config.resume_file:
         state, frame = load_state(config.resume_file, device)
-        print(f"resumed from {config.resume_file} at frame {frame}",
-              file=sys.stderr)
+        if mesh is not None:
+            state = kf.local_state(state)
+        if primary:
+            print(f"resumed from {config.resume_file} at frame {frame}",
+                  file=sys.stderr)
         for _ in range(frame):            # advance the reader cursor
             reader.get_next_frame()
     else:
@@ -217,8 +261,18 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
                                     or break_at_frame is not None),
                             debug_nans=debug_nans)
     xprof = XprofTrace(device) if xprof_enabled() else None
+    if mesh is not None and primary:
+        route = ("CUDA graph replays" if kf._graph_route() else
+                 "eager chunks (the group's collectives are host calls)")
+        print(f"{mesh.describe()}; --scan-chunk route: {route}",
+              file=sys.stderr)
+    mesh_frame = None                 # (frame, tally) of the last window
 
-    logfile = open(config.log_file, "w") if config.log_file else None
+    # Rank 0 alone writes the log (the other ranks' rows are the same).
+    if not primary:
+        logfile = open(os.devnull, "w")
+    else:
+        logfile = open(config.log_file, "w") if config.log_file else None
     logstream = logfile or sys.stdout
     phases = ("preprocessing", "tracking", "integration", "raycasting",
               "rendering")
@@ -330,8 +384,13 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
                 written.append(("the frame", before, state))
             elif fused:
                 before = state
+                if mesh is not None:
+                    mesh.reset_tally()
                 state = kf.compute_frame(state, depth, **gates)
                 t5 = fence()
+                if mesh is not None:
+                    mesh_frame = (frame, {k: dict(v)
+                                          for k, v in mesh.tally.items()})
                 t2 = t3 = t4 = t1
                 written.append(("the frame", before, state))
             else:
@@ -403,29 +462,62 @@ def run(config: Configuration, device: torch.device, fused: bool = False,
     finally:
         if logfile:
             logfile.close()
-    if xprof is not None:
+    if xprof is not None and primary:
         xprof.report()
 
     if config.checkpoint_file:
-        save_state(config.checkpoint_file, state, frame)
-        print(f"checkpoint written to {config.checkpoint_file}",
-              file=sys.stderr)
+        whole = kf.full_state(state) if mesh is not None else state
+        if primary:
+            save_state(config.checkpoint_file, whole, frame)
+            print(f"checkpoint written to {config.checkpoint_file}",
+                  file=sys.stderr)
 
     if config.dump_volume_file:
         kf.dump_volume(state, config.dump_volume_file)
     if pgkf is not None:
         write_trajectories(pgkf, config.log_file or "benchmark")
         summary["posegraph"] = pgkf
-    if power is not None:
+    if power is not None and primary:
         Stats.print_all_data(sys.stderr)
         power.power_stats.print_all_data(sys.stderr)
-    if not quiet and summary["frames"]:
+    if mesh is not None:
+        summary["mesh"] = mesh_summary(kf, mesh, mesh_frame)
+        if primary:
+            print("mesh summary: " + json.dumps(summary["mesh"]),
+                  file=sys.stderr)
+    if not quiet and primary and summary["frames"]:
         comp = float(np.mean(summary["computation"]))
         print(f"{summary['frames']} frames on {device}, computation mean "
               f"{comp:.6f} s/frame ({1.0 / comp:.2f} FPS)", file=sys.stderr)
     summary["state"] = state
     summary["kfusion"] = kf
     return summary
+
+
+def mesh_summary(kf: ShardedKFusion, mesh: Mesh, mesh_frame) -> dict:
+    """The mesh's record of a run: the collective tally of the last
+    per-frame window and, past one rank, the lines where it differs from
+    ``comm.analytic_traffic`` (at the whole ICP budget; empty when they
+    agree), the replication checks made, and every rank's launches of
+    the hand kernels (K1 on the bands, K1F, K2F; gathered, so every
+    rank must call this)."""
+    mine = torch.tensor([bilateral.launches, bilateral.fused_launches,
+                         reduce.fused_launches], dtype=torch.float32,
+                        device=mesh.device)
+    per_rank = mesh.all_gather_rows(mine[None], "launch_count_all_gather")
+    out = {"ranks": mesh.size, "backend": mesh.backend,
+           "device": str(mesh.device),
+           "replication_checks": mesh.check_tally.get(
+               "replication_check", {"count": 0})["count"],
+           "launches": {k: [int(v) for v in per_rank[:, i].tolist()]
+                        for i, k in enumerate(("K1", "K1F", "K2F"))}}
+    if mesh_frame is not None:
+        frame, tally = mesh_frame
+        out.update(tally_frame=frame, tally=tally)
+        if mesh.size > 1:          # one rank exchanges no halo
+            out["analytic_mismatch"] = comm.tally_matches(
+                tally, comm.analytic_traffic(kf))
+    return out
 
 
 def scan_chunk_ok(scan_chunk: int, gate_period: int, *, fused: bool,
@@ -483,6 +575,9 @@ class XprofTrace:
 
     def start(self, frames: int) -> None:
         from torch.profiler import ProfilerActivity, profile
+        # Without it CUPTI stays subscribed after the trace, and every
+        # later eager frame on the H100 ran 35-40% slower (PERF.md §7).
+        os.environ.setdefault("TEARDOWN_CUPTI", "1")
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
@@ -588,6 +683,11 @@ def main(argv=None) -> int:
             scan_chunk=scan_chunk)
     except NotImplementedError as exc:
         print(f"ERROR: {exc}", file=sys.stderr)
+        return 2
+    except RuntimeError as exc:
+        if not config.mesh or "--mesh" not in str(exc):
+            raise
+        print(f"ERROR: {exc}", file=sys.stderr)   # a world-size refusal
         return 2
     return 0
 

@@ -40,6 +40,11 @@ class DepthReader:
         self._first_time: Optional[float] = None
         self.camera_open = False
 
+    def restart(self) -> None:
+        """Back to before the first frame (the dashboard's restart)."""
+        self._frame = -1
+        self._first_time = None
+
     def get_next_frame(self) -> None:
         """Advance the frame cursor; in fps mode the index follows the
         wall clock, so a slow consumer drops frames

@@ -21,8 +21,11 @@ or ``[N, N]`` block is formed):
      no host read, so a converged residual makes the rest inert;
   3. landmarks back-substitute.
 
-Zero-weight observations are inert padding. The sharded variant (the
-JAX ``axis_name`` psum) is not ported.
+Zero-weight observations are inert padding. With ``group`` (a
+``parallel/mesh.py`` ``Mesh``; JAX's ``axis_name``) each rank
+holds a share of the observations and the per-camera and per-landmark
+sums, the residual and every scatter pass back to cameras or landmarks
+are all-reduced, where JAX psums them; the ranks then step alike.
 """
 
 from __future__ import annotations
@@ -53,6 +56,12 @@ def _segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     return out.index_add_(0, idx, x)
 
 
+def _psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (``Mesh.psum``), or
+    ``x`` itself without one."""
+    return x if group is None else group.psum(x, "ba_psum")
+
+
 def bundle_adjust(poses: torch.Tensor,        # [N, 4, 4]
                   landmarks: torch.Tensor,    # [M, 3]
                   obs_cam: torch.Tensor,      # [K] int
@@ -63,6 +72,7 @@ def bundle_adjust(poses: torch.Tensor,        # [N, 4, 4]
                   damping: float = 1e-4,
                   prior_weight: float = 1e6,
                   n_cg: int = 0,
+                  group=None,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (poses, landmarks, the weighted squared residual of the
     last iteration, before its update).
@@ -104,31 +114,33 @@ def bundle_adjust(poses: torch.Tensor,        # [N, 4, 4]
         bc_k = torch.einsum("kai,ka->ki", Jc, r)
         bl_k = torch.einsum("kai,ka->ki", Jl, r)
 
-        Hcc = _segment_sum(Hcc_k, obs_cam, N)            # [N, 6, 6]
-        Hll = _segment_sum(Hll_k, obs_lm, M)             # [M, 3, 3]
-        bc = _segment_sum(bc_k, obs_cam, N)              # [N, 6]
-        bl = _segment_sum(bl_k, obs_lm, M)               # [M, 3]
-        r2 = torch.sum(r * r)
+        Hcc = _psum(_segment_sum(Hcc_k, obs_cam, N), group)   # [N, 6, 6]
+        Hll = _psum(_segment_sum(Hll_k, obs_lm, M), group)    # [M, 3, 3]
+        bc = _psum(_segment_sum(bc_k, obs_cam, N), group)     # [N, 6]
+        bl = _psum(_segment_sum(bl_k, obs_lm, M), group)      # [M, 3]
+        r2 = _psum(torch.sum(r * r), group)
 
         # Landmark marginalization (Schur), matrix-free.
         Hll_inv = torch.linalg.inv(Hll + damping * eye3)  # [M, 3, 3]
 
         def S_mv(x):
             # y_l = sum_k Hcl_k^T x_{cam_k}  (scatter to landmarks)
-            y = _segment_sum(torch.einsum("kab,ka->kb", Hcl_k, x[obs_cam]),
-                             obs_lm, M)                  # [M, 3]
+            y = _psum(_segment_sum(
+                torch.einsum("kab,ka->kb", Hcl_k, x[obs_cam]), obs_lm, M),
+                group)                                   # [M, 3]
             z = torch.einsum("mbc,mc->mb", Hll_inv, y)
             # w_i = sum_k Hcl_k z_{lm_k}  (gather back to cameras)
-            wv = _segment_sum(torch.einsum("kab,kb->ka", Hcl_k, z[obs_lm]),
-                              obs_cam, N)                # [N, 6]
+            wv = _psum(_segment_sum(
+                torch.einsum("kab,kb->ka", Hcl_k, z[obs_lm]), obs_cam, N),
+                group)                                   # [N, 6]
             Sx = torch.einsum("nab,nb->na", Hcc, x) - wv
             Sx = Sx + damping * x
             return torch.cat([Sx[:1] + prior_weight * x[:1], Sx[1:]])
 
         # Reduced gradient: b_red = bc - Hcl Hll^-1 bl.
         zb = torch.einsum("mbc,mc->mb", Hll_inv, bl)
-        b_red = bc - _segment_sum(
-            torch.einsum("kab,kb->ka", Hcl_k, zb[obs_lm]), obs_cam, N)
+        b_red = bc - _psum(_segment_sum(
+            torch.einsum("kab,kb->ka", Hcl_k, zb[obs_lm]), obs_cam, N), group)
 
         # Block-Jacobi preconditioner: inverse of S's diagonal blocks
         # without the Schur term (Hcc + damping + prior).
@@ -159,8 +171,8 @@ def bundle_adjust(poses: torch.Tensor,        # [N, 4, 4]
         dc = x
 
         # Back-substitute landmarks: dl = Hll^-1 (-bl - Hlc dc).
-        Hlc_dc = _segment_sum(torch.einsum("kab,ka->kb", Hcl_k, dc[obs_cam]),
-                              obs_lm, M)
+        Hlc_dc = _psum(_segment_sum(
+            torch.einsum("kab,ka->kb", Hcl_k, dc[obs_cam]), obs_lm, M), group)
         dl = torch.einsum("mbc,mc->mb", Hll_inv, -bl - Hlc_dc)
 
         poses = torch.matmul(poses, _exps(dc))

@@ -13,7 +13,10 @@
   ``torch.linalg.solve`` in float32, on the poses' device.
 * Gauge freedom is fixed by a strong prior on pose 0.
 
-The sharded variant (the JAX ``axis_name`` psum) is not ported.
+With ``group`` (a ``parallel/mesh.py`` ``Mesh``; JAX's ``axis_name``)
+each rank holds a share of the edges and one all-reduce
+of ``(H, b)`` and the residual an iteration completes the system, which
+every rank then solves alike.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ def optimize_pose_graph(poses: torch.Tensor,
                         n_iters: int = 10,
                         damping: float = 1e-6,
                         prior_weight: float = 1e6,
+                        group=None,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gauss-Newton pose-graph optimization.
 
@@ -80,6 +84,9 @@ def optimize_pose_graph(poses: torch.Tensor,
       edges_T: [E, 4, 4] measured relative poses T_ij.
       edges_w: [E] per-edge weights (0 masks an edge out, so padded
         edge buffers are inert).
+      group: all-reduce (H, b) over this mesh's ranks (``Mesh.psum``;
+        edge-sharded mode: each rank passes its own edges and the same
+        poses).
 
     Returns (optimized poses [N, 4, 4], the total weighted squared
     residual of the last iteration, before its update). Nothing is read
@@ -113,6 +120,9 @@ def optimize_pose_graph(poses: torch.Tensor,
         b.index_add_(0, idx_i, bi)
         b.index_add_(0, idx_j, bj)
         total_r2 = r2.sum()
+        if group is not None:
+            H, b, total_r2 = (group.psum(x, "pose_graph_psum")
+                              for x in (H, b, total_r2))
 
         # Gauge prior on pose 0.
         H[0] += prior_weight * eye6

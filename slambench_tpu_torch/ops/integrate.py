@@ -26,8 +26,9 @@ def integrate(tsdf: torch.Tensor,
               mu: float,
               max_weight: float = params.MAX_WEIGHT,
               dim: Dim3 = (2.0, 2.0, 2.0),
-              gate: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor,
-                                                            torch.Tensor]:
+              gate: Optional[torch.Tensor] = None,
+              z_offset: int = 0,
+              z_total: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fuse one depth frame into the TSDF; returns new (tsdf, weight).
 
     Per voxel: skip if camera z < 1e-4, the projection falls outside the
@@ -37,14 +38,25 @@ def integrate(tsdf: torch.Tensor,
 
     ``gate`` (a 0-d bool tensor) is the device-side counterpart of JAX's
     ``lax.cond`` around the update: it joins the voxel mask, so where it
-    is false no voxel changes and the host reads nothing."""
+    is false no voxel changes and the host reads nothing.
+
+    ``z_offset`` / ``z_total`` fuse into a z-slab (the sharded step,
+    ``parallel/step.py``): local plane ``z`` is centred at global plane
+    ``z + z_offset`` of a ``z_total``-deep volume (JAX's ``integrate``
+    arguments of the same names); with ``z_total`` 0 the volume is
+    whole."""
     H, W = depth.shape
     sz, sy, sx = tsdf.shape
     dev = tsdf.device
 
     X = voxel_centers_axis(sx, dim[0], dev)[None, None, :]
     Y = voxel_centers_axis(sy, dim[1], dev)[None, :, None]
-    Z = voxel_centers_axis(sz, dim[2], dev)[:, None, None]
+    if z_total:
+        Z = (torch.arange(sz, dtype=torch.float32, device=dev) + z_offset
+             + 0.5) * (dim[2] / z_total)
+    else:
+        Z = voxel_centers_axis(sz, dim[2], dev)
+    Z = Z[:, None, None]
 
     M = inv_track
     px = M[0, 0] * X + M[0, 1] * Y + M[0, 2] * Z + M[0, 3]

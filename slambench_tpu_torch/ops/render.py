@@ -119,15 +119,24 @@ def render_volume(tsdf: torch.Tensor, dim: Dim3, view: torch.Tensor,
     else:
         hit_pos, t_hit = raycast(tsdf, dim, view, image_size, near_plane,
                                  far_plane, step, large_step)
-    g = grad(tsdf, dim, hit_pos)
-    dev = tsdf.device
+    return shade(hit_pos, t_hit, grad(tsdf, dim, hit_pos), light, ambient)
+
+
+def shade(hit_pos: torch.Tensor, t_hit: torch.Tensor, g: torch.Tensor,
+          light: Tuple[float, float, float] = params.LIGHT,
+          ambient: Tuple[float, float, float] = params.AMBIENT
+          ) -> torch.Tensor:
+    """Diffuse shading of raycast hits (positions, distances, 0 for a
+    miss, and the TSDF gradient there) as RGBA (reference:
+    cpp/kernels.cpp:895-910)."""
+    dev = hit_pos.device
     light_a = constant(tuple(light), torch.float32, dev).reshape(3, 1, 1)
     ambient_a = constant(tuple(ambient), torch.float32, dev).reshape(3, 1, 1)
     diff_dir = normalize3(light_a - hit_pos)
     dir_term = torch.clamp(dot3(normalize3(g), diff_dir), min=0.0)
     col = torch.clamp(dir_term[None] + ambient_a, 0.0, 1.0) * 255.0
-    shade = (t_hit > 0) & (length3(g) > 0)
-    col = torch.where(shade[None], col, torch.zeros_like(col))
+    lit = (t_hit > 0) & (length3(g) > 0)
+    col = torch.where(lit[None], col, torch.zeros_like(col))
     return _pack_rgba(col[0], col[1], col[2])
 
 

@@ -49,7 +49,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -175,8 +175,13 @@ class KFusion:
     def init_state(self) -> KFusionState:
         """Fresh state; ``raycast_pose`` starts at the initial pose, as in
         the JAX package (the reference inverts a zero matrix there)."""
+        tsdf, weight = init_volume(self.volume_resolution, self.device)
+        return self._fresh_state(tsdf, weight, make_min_mip(tsdf))
+
+    def _fresh_state(self, tsdf: torch.Tensor, weight: torch.Tensor,
+                     mip: torch.Tensor) -> KFusionState:
+        """A fresh state around a fresh volume (or, sharded, slab)."""
         dev = self.device
-        tsdf, weight = init_volume(self.volume_resolution, dev)
         pose = translation_pose(self.init_pose, dev)
         H, W = self.H, self.W
 
@@ -184,7 +189,7 @@ class KFusion:
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         return KFusionState(
-            tsdf=tsdf, weight=weight, mip=make_min_mip(tsdf),
+            tsdf=tsdf, weight=weight, mip=mip,
             pose=pose.clone(), old_pose=pose.clone(),
             raycast_pose=pose.clone(),
             ref_vertex=zeros(3, H, W), ref_normal=zeros(3, H, W),
@@ -214,12 +219,26 @@ class KFusion:
             span=self.timings.span("mm2m_bilateral", self.H * self.W))
         return dataclasses.replace(state, float_depth=fd, scaled_depth0=sd0)
 
-    def tracking(self, state: KFusionState) -> KFusionState:
+    def tracking(self, state: KFusionState, census: bool = False):
         """Pyramid + per-level vertex/normal maps + coarse-to-fine ICP +
-        checkPose (reference: cpp/kernels.cpp:924-971)."""
+        checkPose (reference: cpp/kernels.cpp:924-971).
+
+        ``census=True`` also returns, coarsest level first, each level's
+        executed iteration count (int32) and convergence flag (bool) on
+        the device: JAX's ``_tracking(with_census=True)``
+        (``tools/icp_census.py``). The loop runs each level's whole
+        budget either way; the count is the iterations up to and
+        including the first that converged, which is what JAX's
+        ``while_loop`` runs."""
+        verts, norms = self._level_maps(state.scaled_depth0)
+        return self._icp(state, verts, norms, census)
+
+    def _level_maps(self, sd0: torch.Tensor):
+        """The half-sample pyramid's vertex and normal maps, finest
+        level first."""
         span = self.timings.span
         npix = self.H * self.W
-        pyr = [state.scaled_depth0]
+        pyr = [sd0]
         for i in range(1, self._levels):
             with span("halfSampleRobustImage", npix >> (2 * i)):
                 pyr.append(half_sample_robust(pyr[-1], params.E_DELTA * 3,
@@ -233,7 +252,16 @@ class KFusion:
                 n = vertex2normal(v)
             verts.append(v)
             norms.append(n)
+        return verts, norms
 
+    def _icp(self, state: KFusionState, verts, norms, census: bool,
+             psum=None, gather_result=None):
+        """The coarse-to-fine ICP over the level maps ``verts`` /
+        ``norms`` and checkPose. ``psum`` completes each iteration's
+        reduction across shards and ``gather_result`` reassembles level
+        0's result codes (``parallel/step.py``); both are None on one
+        device."""
+        span = self.timings.span
         old_pose = state.pose
         view = mat4mul(get_camera_matrix(self._k),
                        rigid_inverse(state.raycast_pose))
@@ -243,33 +271,48 @@ class KFusion:
             pose = state.pose
         reduction = state.reduction
         track_result = state.track_result
+        counts, convs = [], []
 
         for level in reversed(range(self._levels)):
-            h, w = self.H >> level, self.W >> level
+            h, w = verts[level].shape[1:]
             level_result = torch.zeros((h, w), dtype=torch.int32,
                                        device=self.device)
             done = torch.zeros((), dtype=torch.bool, device=self.device)
+            n_it = 0
             for _ in range(self.iterations[level]):
                 red, result = track_reduce_cuda(
                     verts[level], norms[level], state.ref_vertex,
                     state.ref_normal, pose, view,
                     span=span("track_reduce", h * w))
+                if psum is not None:
+                    red = psum(red)
                 with span("updatePose", 1):
                     new_pose, conv = update_pose(pose, red,
                                                  self.icp_threshold)
                 pose = torch.where(done, pose, new_pose)
                 reduction = torch.where(done, reduction, red)
                 level_result = torch.where(done, level_result, result)
+                if census:
+                    n_it = n_it + (~done).to(torch.int32)
                 done = done | conv
+            if census:
+                counts.append(n_it)
+                convs.append(done)
             if level == 0:
-                track_result = level_result
+                track_result = (level_result if gather_result is None
+                                else gather_result(level_result))
 
         with span("checkPose", 1):
             pose, tracked = check_pose(pose, old_pose, reduction,
                                        (self.H, self.W))
-        return dataclasses.replace(
+        new_state = dataclasses.replace(
             state, pose=pose, old_pose=old_pose, reduction=reduction,
             track_result=track_result, tracked=tracked)
+        if census:
+            return new_state, torch.stack([
+                torch.as_tensor(c, dtype=torch.int32, device=self.device)
+                for c in counts]), torch.stack(convs)
+        return new_state
 
     def skip_tracking(self, state: KFusionState) -> KFusionState:
         """A frame the tracking rate skips: only ``tracked`` changes."""
@@ -295,20 +338,28 @@ class KFusion:
         else:
             should = force_integrate or (integrate_frame and bool(ok))
         if on_device or should:
-            with self.timings.span("integrate", tsdf.numel()):
-                tsdf, weight = integrate(
-                    tsdf, weight, state.float_depth, rigid_inverse(pose),
-                    get_camera_matrix(self._k), self.mu, params.MAX_WEIGHT,
-                    self.volume_dimensions,
-                    gate=should if on_device else None)
-            with self.timings.span("minMip", tsdf.numel()):
-                mip = make_min_mip(tsdf)
+            tsdf, weight, mip = self._integrate_volume(
+                state, pose, should if on_device else None)
         if not on_device:
             should = torch.full((), should, dtype=torch.bool,
                                 device=self.device)
         return dataclasses.replace(
             state, pose=pose, tsdf=tsdf, weight=weight, mip=mip,
             integrated=should)
+
+    def _integrate_volume(self, state: KFusionState, pose: torch.Tensor,
+                          gate: Optional[torch.Tensor]):
+        """Fuse ``state.float_depth`` into the volume from ``pose``
+        (masked by ``gate`` when given) and rebuild the min-mip: (tsdf,
+        weight, mip)."""
+        with self.timings.span("integrate", state.tsdf.numel()):
+            tsdf, weight = integrate(
+                state.tsdf, state.weight, state.float_depth,
+                rigid_inverse(pose), get_camera_matrix(self._k), self.mu,
+                params.MAX_WEIGHT, self.volume_dimensions, gate=gate)
+        with self.timings.span("minMip", tsdf.numel()):
+            mip = make_min_mip(tsdf)
+        return tsdf, weight, mip
 
     def raycasting(self, state: KFusionState, *, early_exit: bool = True
                    ) -> KFusionState:
@@ -415,8 +466,8 @@ class KFusion:
               gates: tuple) -> Tuple[KFusionState, dict]:
         """``depths [K, L, H, W]`` through ``scan_step`` with the period's
         ``(tracking_on, integrate_frame)`` gates: a replayed CUDA graph
-        on the card, a loop on the CPU."""
-        if self.device.type == "cuda":
+        on the card, a loop on the CPU (``_graph_route``)."""
+        if self._graph_route():
             state, rows = self.graphs.run(state, depths, gates)
         else:
             out = []
@@ -427,6 +478,11 @@ class KFusion:
                     out.append(graphs.scan_row(state))
             rows = torch.stack(out)
         return state, graphs.unpack_rows(rows)
+
+    def _graph_route(self) -> bool:
+        """Whether the batched routes replay a CUDA graph (on the card)
+        or loop ``scan_step`` eagerly (on the CPU)."""
+        return self.device.type == "cuda"
 
     def process_frame(self, state: KFusionState, input_depth, frame: int,
                       tracking_rate: int = 1, integration_rate: int = 2

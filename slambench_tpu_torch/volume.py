@@ -55,8 +55,10 @@ def _col(values, nd: int, dtype, device) -> torch.Tensor:
     return constant(tuple(values), dtype, device).reshape(3, *([1] * nd))
 
 
-def _base_factor(tsdf: torch.Tensor, dim: Dim3, pos: torch.Tensor):
+def _base_factor(tsdf: torch.Tensor, dim: Dim3, pos: torch.Tensor,
+                 z_total: int = 0):
     sz, sy, sx = tsdf.shape
+    sz = z_total or sz
     nd = pos.dim() - 1
     size = _col([sx, sy, sz], nd, torch.float32, pos.device)
     dim_a = _col(list(dim), nd, torch.float32, pos.device)
@@ -71,14 +73,30 @@ def _clip(v, limit):
     return torch.clamp(v, min=0).minimum(limit)
 
 
-def interp(tsdf: torch.Tensor, dim: Dim3, pos: torch.Tensor) -> torch.Tensor:
+def _slab_z(z: torch.Tensor, z_offset: int, depth: int) -> torch.Tensor:
+    """Global plane ``z`` (already clamped to the whole volume) as an
+    index into a slab that holds planes ``[z_offset, z_offset + depth)``,
+    clamped into the slab."""
+    return torch.clamp(z - z_offset, 0, depth - 1)
+
+
+def interp(tsdf: torch.Tensor, dim: Dim3, pos: torch.Tensor,
+           z_offset: int = 0, z_total: int = 0) -> torch.Tensor:
     """Trilinear TSDF value at world positions ``pos`` ([3, ...])
-    (reference: commons.h:191-213)."""
-    base, factor, limit, _, _ = _base_factor(tsdf, dim, pos)
+    (reference: commons.h:191-213).
+
+    With ``z_total`` > 0, ``tsdf`` is a z-slab: its plane ``k`` is plane
+    ``k + z_offset`` of a ``z_total``-deep volume (the sharded step's
+    halo-extended slab, ``parallel/step.py``); indices clamp to the
+    whole volume, then into the slab."""
+    base, factor, limit, _, _ = _base_factor(tsdf, dim, pos, z_total)
     lower = _clip(base, limit)
     upper = _clip(base + 1, limit)
     lx, ly, lz = lower[0], lower[1], lower[2]
     ux, uy, uz = upper[0], upper[1], upper[2]
+    if z_total:
+        lz = _slab_z(lz, z_offset, tsdf.shape[0])
+        uz = _slab_z(uz, z_offset, tsdf.shape[0])
     fx, fy, fz = factor[0], factor[1], factor[2]
     flat = tsdf.reshape(-1)
     shp = tsdf.shape
@@ -93,12 +111,14 @@ def interp(tsdf: torch.Tensor, dim: Dim3, pos: torch.Tensor) -> torch.Tensor:
     return v * params.TSDF_INV_SCALE
 
 
-def grad(tsdf: torch.Tensor, dim: Dim3, pos: torch.Tensor) -> torch.Tensor:
+def grad(tsdf: torch.Tensor, dim: Dim3, pos: torch.Tensor,
+         z_offset: int = 0, z_total: int = 0) -> torch.Tensor:
     """Central-difference TSDF gradient at ``pos`` (reference:
     commons.h:215-301): trilinear blend of one-voxel central differences
     over the 32 distinct lattice points of the stencil, scaled by
-    ``dim/size * 0.5/32766``."""
-    base, factor, limit, size, dim_a = _base_factor(tsdf, dim, pos)
+    ``dim/size * 0.5/32766``. ``z_offset`` / ``z_total`` as in
+    ``interp``."""
+    base, factor, limit, size, dim_a = _base_factor(tsdf, dim, pos, z_total)
     ll = _clip(base - 1, limit)
     lo = _clip(base, limit)
     up = _clip(base + 1, limit)
@@ -127,6 +147,9 @@ def grad(tsdf: torch.Tensor, dim: Dim3, pos: torch.Tensor) -> torch.Tensor:
     xw = (ll[0], uu[0])
     yw = (ll[1], uu[1])
     zw = (ll[2], uu[2])
+    if z_total:
+        zs, zw = ([_slab_z(z, z_offset, tsdf.shape[0]) for z in pair]
+                  for pair in (zs, zw))
     sel3 = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]
     C = {k: _vs(flat, shp, xs[k[0]], ys[k[1]], zs[k[2]]) for k in sel3}
     XW = {k: _vs(flat, shp, xw[k[0]], ys[k[1]], zs[k[2]]) for k in sel3}

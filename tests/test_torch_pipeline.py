@@ -181,7 +181,7 @@ def test_cli_e2e_trajectory_ate(dataset, tmp_path):
     assert log["integrated"][:4].all()
 
 
-def test_backend_names_and_unported_paths(dataset):
+def test_backend_names_and_unported_paths(dataset, tmp_path):
     args = ((16, 12), (16,) * 3, (2.0,) * 3, (1, 1, 0), (2, 2),
             (30.0, 30.0, 8.0, 6.0))
     for name in ("jnp", "fast", "pallas", "auto"):
@@ -203,8 +203,19 @@ def test_backend_names_and_unported_paths(dataset):
         with pytest.raises(SystemExit) as exc:
             main(["--device", "cpu", *flags, "-i", "x.raw"])
         assert exc.value.code == 1, flags
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(parse_args(["-i", dataset["raw"], "--mesh", "z:4"]), CPU)
+    # --mesh z:1 runs the sharded step on one gloo rank on the CPU, and
+    # check_pos reads its log (8 frames at 64^3: the CLI test's gates).
+    log_path = str(tmp_path / "mesh.log")
+    summary = run(parse_args(["-i", dataset["raw"], "-o", log_path,
+                              "-v", "64", "-s", "4.8", "-p", "0.34,0.5,0.24",
+                              "-c", "1", "-r", "1", "-k", "120.3,120.0,80,60",
+                              "--mesh", "z:1"]), CPU, quiet=True,
+                  max_frames=8)
+    assert summary["frames"] == 8 and summary["mesh"]["ranks"] == 1
+    log = parse_benchmark_log(log_path)
+    ate = compute_ate(log, load_gt_trajectory(dataset["gt"]))["ATE"]
+    assert len(log["frame"]) == 8 and log["tracked"][4:].all()
+    assert ate.mean() < 0.06, f"mean ATE {ate.mean():.4f} m"
 
 
 def test_port_never_imports_jax():
