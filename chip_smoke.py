@@ -27,7 +27,9 @@ no ``ok`` line):
    on a level with no input and on one with holes in both normal maps
    (result codes equal, the reduction within tolerance, two calls bit for
    bit), timed as one CUDA-event pair around back-to-back launches
-   (``tools/timing.py``); G1-G4 in every mode at the gather probes'
+   (``tools/timing.py``); K2 and K2F at 128, 512 and 1024 threads a
+   block on the pyramid's shapes (codes equal, the sums within K2_TOL,
+   two calls bit for bit), timed; G1-G4 in every mode at the gather probes'
    shapes (G4 on both routes: the 240x320 image staged, 76% of it in
    every block, and a 720x1280 one from device memory), and on the redesigned
    kernels' edge cases (``tools/gather_probe.py:edge_cases``: misaligned
@@ -51,7 +53,8 @@ no ``ok`` line):
    rendering``; on the final state, the depth, track and normal images
    on the card within one grey level of a CPU copy's on >= 99.9% of
    pixels, and the min-mip render route losing <= 0.1% of the oracle
-   route's hits;
+   route's hits; the two-phase march's counters (branches, substeps and
+   ray-substeps of each phase) over the run's raycasts and renders;
 5. scan — ``--scan-chunk`` as CUDA graph replays at phase 4's settings:
    (a) boot frames 0-4, then ``compute_frames_scan`` in chunks of 8
    against per-frame ``compute_frame`` from the same state, in JAX's
@@ -145,10 +148,27 @@ no ``ok`` line):
    agree with its plain twin and every kernel's launch count must move;
    an empty kernel's time (``tools/k1_split.py`` mode 0) is the floor
    printed beside the rows;
-14. report — one JSON line of kernel results (time, plain and library
+14. tuning — the clip through the CLI's ``main`` in a subprocess (the
+   knobs are read at import): (a) with ``SLAMBENCH_MARCH_COMPACT=0``
+   (the single-phase march; phase 4 runs the two-phase one) and (b) with
+   ``SLAMBENCH_INTEGRATE_BLOCKS=8x8x2`` (the frustum-culled integrate):
+   each run's logged positions equal phase 4's bit for bit, K1F once and
+   K2F 19 times a frame; the raycasting or integration ms beside phase
+   4's, phase 4's and (a)'s march counters, (b)'s visible block share;
+   (c) ``tools/autotune.py``'s four sweeps at a few values each (their
+   lines read by ``eval/check_kernels.py``), ``tools/march_census.py``
+   on the clip after 8 frames and ``tools/probe_integrate.py`` at 256^3;
+15. capability — JAX's 1024^3 run (``tests/test_sharded.py:206``):
+   ``ShardedKFusion`` at 64x48, 1024^3 / 4.8 m, two gloo ranks on the
+   card with 8x8x2 blocks, a bootstrap integrate then a raycast frame
+   (``tools/distributed_probe.py --capability 1024``): the wall in
+   ``ref_normal``, a zero crossing in ``tsdf[:, ::64, ::64]``; each
+   rank's ms and peak memory, and whether a monolithic integrate of its
+   slab fits;
+16. report — one JSON line of kernel results (time, plain and library
    time, bound, launches; with the mesh route's rows "K1, mesh band" and
-   "K2F, mesh row block"), the nvidia-smi line, and the final
-   ``{"ok": true, ...}`` line.
+   "K2F, mesh row block", and K2's and K2F's ``by_threads``), the
+   nvidia-smi line, and the final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -190,6 +210,7 @@ KF_BA_SLACK = 1e-4              # test_ba_backend_beats_posegraph_on_revisit
 KF_MEAN_ERR = 0.08              # test_posegraph_kfusion_end_to_end's bound
 KF_WITNESS_TOL = 1e-3           # m: card route vs its CPU replay, per pose
 DASH_FRAMES = 6                 # phase 11's short clip
+CAPABILITY_VOLUME = 1024        # phase 15: tests/test_sharded.py:206
 SLAB_NORMAL_SHARE = 0.98        # phase 12 (c), the final volume: the share of
                                 # common hits whose normals agree to a dot
                                 # > 0.99 (0.9919 read on the H100, PERF.md)
@@ -304,7 +325,7 @@ def phase_device() -> str:
                          "smoke test needs a CUDA card")
     from slambench_tpu_torch.policy import apply_precision_policy
     smi = nvidia_smi_line()
-    log(f"[1/14 device] {smi} | torch {torch.__version__} | CUDA "
+    log(f"[1/16 device] {smi} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     apply_precision_policy()
     return smi
@@ -316,7 +337,7 @@ def phase_build() -> None:
     t0 = time.monotonic()
     path = build.build()
     build.load()
-    log(f"[2/14 build] {os.path.relpath(path)} in "
+    log(f"[2/16 build] {os.path.relpath(path)} in "
         f"{time.monotonic() - t0:.2f} s (nvcc {build.build_seconds:.2f} s)")
     t0 = time.monotonic()
     path = native.build()
@@ -344,7 +365,7 @@ def phase_kernels(dev: torch.device) -> dict:
     )
     from slambench_tpu_torch.tools.timing import bound_by, bound_ms
 
-    log("[3/14 kernels] kernel vs plain torch on the card")
+    log("[3/16 kernels] kernel vs plain torch on the card")
     dim = (4.8, 4.8, 4.8)
     poses = orbit_trajectory(12, [0.34 * 4.8, 0.5 * 4.8, 0.24 * 4.8])
     depth_mm = render_depth_frame(SyntheticScene(dim=dim), poses[11],
@@ -487,14 +508,80 @@ def phase_kernels(dev: torch.device) -> dict:
                 "bound_by": bound_by(nbytes, ops),
                 "bytes": nbytes, "ops": ops}
             log(f"  K2F {name}: {kf_times[name]}")
+    k2_threads, k2f_threads = threads_sweep(
+        cases, fused_cases, (ref_v, pose, view), k2_times, kf_times)
     return {"k1": {"max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
                    "bound_ms": bound_ms(k1_bytes, k1_ops),
                    "bound_by": bound_by(k1_bytes, k1_ops)},
             "k1f": k1f,
-            "k2": {"max_abs_err": k2_err, "by_shape": k2_times},
-            "k2f": {"max_abs_err": kf_err, "by_shape": kf_times},
+            "k2": {"max_abs_err": k2_err, "by_shape": k2_times,
+                   "by_threads": k2_threads},
+            "k2f": {"max_abs_err": kf_err, "by_shape": kf_times,
+                    "by_threads": k2f_threads},
             # The mesh phase holds K1 and K2F at its shapes on this frame.
             "frame": (fd, lut, maps, pose, view)}
+
+
+def threads_sweep(cases, fused_cases, ref, k2_times, kf_times):
+    """K2 and K2F at 128, 512 and 1024 threads a block (the default 256
+    is phase 3's own rows) on the pyramid's three shapes: K2F's result
+    codes equal to the twin's, both reductions within K2_TOL, two calls
+    bit for bit; each timed. ``ref`` is the reference vertex map, the
+    pose and the view. Returns ``{threads: {"max_abs_err", shape: ms}}``
+    for K2 and for K2F, 256 included (its error is phase 3's)."""
+    from slambench_tpu_torch.ops.hopper import reduce
+    from slambench_tpu_torch.tools.mosaic_probe import K2_TOL
+    ref_v, pose, view = ref
+    k2 = {"256": {k: v["ms"] for k, v in k2_times.items()}}
+    k2f = {"256": {k: v["ms"] for k, v in kf_times.items()}}
+    for threads in (128, 512, 1024):
+        t2 = k2[str(threads)] = {"max_abs_err": 0.0}
+        tf = k2f[str(threads)] = {"max_abs_err": 0.0}
+        for name, data in cases:
+            if name not in k2_times:
+                continue
+            got = reduce.reduce_track_cuda(data, threads=threads)
+            again = reduce.reduce_track_cuda(data, threads=threads)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise RuntimeError(f"K2 {name} at {threads} threads: two "
+                                   "calls differ")
+            t2["max_abs_err"] = max(t2["max_abs_err"], compare(
+                f"K2 reduce {name}, {threads} threads", got,
+                reduce.plain(data), K2_TOL))
+            t2[name] = time_ms(f"K2 {name} {threads}", lambda: reduce.
+                               reduce_track_cuda(data, threads=threads))
+        for name, v, n, rn in fused_cases:
+            if name not in kf_times:
+                continue
+            args = (v, n, ref_v, rn, pose, view)
+            got, res = reduce.track_reduce_cuda(*args, threads=threads)
+            got2, res2 = reduce.track_reduce_cuda(*args, threads=threads)
+            want, want_res = reduce.track_reduce_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(res, want_res):
+                raise RuntimeError(f"K2F {name} at {threads} threads: "
+                                   f"{int((res != want_res).sum())} result "
+                                   "codes differ from the twin's")
+            if not (torch.equal(got, got2) and torch.equal(res, res2)):
+                raise RuntimeError(f"K2F {name} at {threads} threads: two "
+                                   "calls differ")
+            tf["max_abs_err"] = max(tf["max_abs_err"], compare(
+                f"K2F track_reduce {name}, {threads} threads", got, want,
+                K2_TOL))
+            tf[name] = time_ms(f"K2F {name} {threads}", lambda: reduce.
+                               track_reduce_cuda(*args, threads=threads))
+    log("  K2 by threads a block (us at 240x320 / 120x160 / 60x80): "
+        + "; ".join(f"{t}: " + " / ".join(f"{1e3 * v[k]:.3f}"
+                                          for k in k2_times)
+                    for t, v in sorted(k2.items(), key=lambda kv:
+                                       int(kv[0]))))
+    log("  K2F by threads a block (us at 240x320 / 120x160 / 60x80): "
+        + "; ".join(f"{t}: " + " / ".join(f"{1e3 * v[k]:.3f}"
+                                          for k in kf_times)
+                    for t, v in sorted(k2f.items(), key=lambda kv:
+                                       int(kv[0]))))
+    return k2, k2f
 
 
 def phase_gathers(dev: torch.device) -> dict:
@@ -686,14 +773,20 @@ def phase_main_path(dev: torch.device, man: dict, work: str) -> dict:
         compute_ate, load_gt_trajectory, parse_benchmark_log,
     )
 
-    log(f"[4/14 main path] traj2-like clip, {N_FRAMES} frames 640x480, "
+    log(f"[4/16 main path] traj2-like clip, {N_FRAMES} frames 640x480, "
         f"CLI {' '.join(CLI_ARGS)}")
+    from slambench_tpu_torch.ops import raycast_fast
+
     log_path = os.path.join(work, "benchmark.log")
     reset_launches()
+    raycast_fast.reset_counters()
     t0 = time.monotonic()
     summary = run_cli(man, dev, log_path)
     wall = time.monotonic() - t0
     launches = frame_launches()
+    march = dict(raycast_fast.march_counts,
+                 calls=raycast_fast.march_calls,
+                 substeps=raycast_fast.march_substeps)
 
     logd = parse_benchmark_log(log_path)
     ate = compute_ate(logd, load_gt_trajectory(man["gt"]))["ATE"]
@@ -750,8 +843,11 @@ def phase_main_path(dev: torch.device, man: dict, work: str) -> dict:
         f"{k} {v:.3f}" for k, v in ms.items()))
     log(f"  reader {reader}; read + upload ms a frame: native "
         f"{readers['native']:.4f}, numpy {readers['numpy']:.4f}")
+    log(f"  min-mip marches (raycasts and volume renders), two-phase: "
+        f"{json.dumps(march)}")
     renders = check_renders(summary["kfusion"], state)
-    return {"launches": launches, "ate_mean": float(ate.mean()),
+    return {"launches": launches, "march": march,
+            "ate_mean": float(ate.mean()),
             "ate_max": float(ate.max()), "ms": ms, "renders": renders,
             "reader": reader, "reader_ms": readers,
             "positions": np.stack([logd["X"], logd["Y"], logd["Z"]], 1),
@@ -938,7 +1034,7 @@ def phase_scan(dev: torch.device, man: dict, work: str, main: dict) -> dict:
         compute_ate, load_gt_trajectory, parse_benchmark_log,
     )
 
-    log(f"[5/14 scan] traj2-like clip, {N_FRAMES} frames, chunks of "
+    log(f"[5/16 scan] traj2-like clip, {N_FRAMES} frames, chunks of "
         f"{SCAN_CHUNK}: CUDA graph replays against per-frame dispatch")
     result = scan_routes(dev, man)
     torch.cuda.empty_cache()
@@ -1047,7 +1143,7 @@ def phase_resume(dev: torch.device, man: dict, work: str,
     final pose must equal phase 4's within RESUME_TOL."""
     from slambench_tpu_torch.eval.check_pos import parse_benchmark_log
 
-    log(f"[6/14 resume] frames 0-{RESUME_AT - 1} with --checkpoint, then "
+    log(f"[6/16 resume] frames 0-{RESUME_AT - 1} with --checkpoint, then "
         f"--resume to frame {N_FRAMES - 1}")
     ck = os.path.join(work, "state.npz")
     rest_log = os.path.join(work, "resumed.log")
@@ -1084,7 +1180,7 @@ def phase_oracle_cv(dev: torch.device, man: dict, work: str) -> dict:
     )
 
     extra = ["--backend", "jnp", "--motion-model", "cv"]
-    log(f"[7/14 oracle + cv] {' '.join(extra)}, KERNEL_TIMINGS=1")
+    log(f"[7/16 oracle + cv] {' '.join(extra)}, KERNEL_TIMINGS=1")
     log_path = os.path.join(work, "oracle_cv.log")
     err = io.StringIO()
     reset_launches()
@@ -1189,7 +1285,7 @@ def phase_inputs(dev: torch.device, man: dict, work: str, main: dict,
     )
     from slambench_tpu_torch.tools import scene2raw
 
-    log(f"[8/14 inputs and observation] (a) {SCENE_FRAMES} frames as an "
+    log(f"[8/16 inputs and observation] (a) {SCENE_FRAMES} frames as an "
         f"ICL-NUIM scene + .scf, --stats --debug-nans --report-device "
         f"--break-at-frame {SCENE_BREAK_AT}")
     t0 = time.monotonic()
@@ -1615,7 +1711,7 @@ def phase_keyframes(dev: torch.device, work: str, main: dict) -> dict:
     )
     from slambench_tpu_torch.pipeline import KFusion
 
-    log(f"[9/14 keyframes] (a) revisiting orbit, {KF_FRAMES} frames 640x480, "
+    log(f"[9/16 keyframes] (a) revisiting orbit, {KF_FRAMES} frames 640x480, "
         f"amp {KF_AMP}, period {KF_PERIOD}, CLI {' '.join(CLI_ARGS)} "
         "--keyframes [--ba]")
     man = generate_dataset(os.path.join(work, "orbit"), dev,
@@ -1768,7 +1864,7 @@ def phase_census(dev: torch.device, man: dict, work: str) -> dict:
     updatePose launches a frame."""
     from slambench_tpu_torch.tools import icp_census
 
-    log(f"[10/14 census] tools/icp_census.py --device cuda on the "
+    log(f"[10/16 census] tools/icp_census.py --device cuda on the "
         f"traj2-like clip, {N_FRAMES} frames 640x480 -> 320x240, "
         f"{VOLUME}^3, pyramid {','.join(map(str, PYRAMID))}")
     path = os.path.join(work, "census.json")
@@ -1818,7 +1914,7 @@ def phase_dashboard(dev: torch.device, work: str) -> dict:
     from slambench_tpu_torch.frontend import dashboard, viewer
     from slambench_tpu_torch.io.synthetic import generate_dataset
 
-    log(f"[11/14 dashboard] frontend/dashboard.py and frontend/viewer.py "
+    log(f"[11/16 dashboard] frontend/dashboard.py and frontend/viewer.py "
         f"on a {DASH_FRAMES}-frame clip on the card")
     man = generate_dataset(os.path.join(work, "short"), dev,
                            n_frames=DASH_FRAMES, image_size=(640, 480),
@@ -2003,7 +2099,7 @@ def phase_mesh(dev: torch.device, man: dict, work: str, main: dict,
     with --scan-chunk 8 (CUDA graph replays with the collectives inside);
     (b) two ranks on the card under torchrun; (c) the slab raycast at 2
     ranks against the single-device march; (d) the distributed probe."""
-    log(f"[12/14 mesh] traj2-like clip, {N_FRAMES} frames, --mesh z:1 "
+    log(f"[12/16 mesh] traj2-like clip, {N_FRAMES} frames, --mesh z:1 "
         f"(in process) and z:2 (torchrun, two ranks on one card)")
     # (a) one rank, NCCL.
     a = mesh_run(dev, man, work, "mesh1")
@@ -2153,7 +2249,7 @@ def phase_probes(dev: torch.device) -> dict:
     from slambench_tpu_torch.ops.hopper import bilateral, gather, reduce
     from slambench_tpu_torch.tools import gather_probe, k1_split, mosaic_probe
 
-    log("[13/14 probe path] tools/mosaic_probe.py and tools/gather_probe.py "
+    log("[13/16 probe path] tools/mosaic_probe.py and tools/gather_probe.py "
         "at full shapes")
     bilateral.launches = 0
     bilateral.fused_launches = 0
@@ -2180,6 +2276,174 @@ def phase_probes(dev: torch.device) -> dict:
     log(f"  empty kernel (tools/k1_split.py mode 0, 240x320 grid): "
         f"{result['empty_kernel']['ms'] * 1e3:.3f} us a launch")
     return result
+
+
+# One run of the CLI's main in a process of its own (the knobs are read
+# at import); the last stdout line holds the march, block and launch
+# counters.
+TUNING_RUN = r"""
+import json, sys
+from slambench_tpu_torch.frontend.benchmark import main
+from slambench_tpu_torch.ops import integrate, raycast_fast
+from slambench_tpu_torch.ops.hopper import bilateral, reduce
+rc = main(sys.argv[1:])
+print("tuning counters: " + json.dumps({
+    "knobs": raycast_fast.read_knobs(),
+    "march": dict(raycast_fast.march_counts, calls=raycast_fast.march_calls,
+                  substeps=raycast_fast.march_substeps),
+    "blocks": integrate.block_counts,
+    "launches": {"K1": bilateral.launches, "K1F": bilateral.fused_launches,
+                 "K2": reduce.launches, "K2F": reduce.fused_launches}}))
+sys.exit(rc)
+"""
+
+
+def tuning_run(dev: torch.device, man: dict, work: str, name: str,
+               env: dict) -> dict:
+    """Phase 4's CLI run in a subprocess under ``env``: the log's
+    positions and steady-state phase ms, and the run's counters."""
+    from slambench_tpu_torch.eval.check_pos import parse_benchmark_log
+    log_path = os.path.join(work, f"{name}.log")
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-c", TUNING_RUN, "-i", man["raw"], "-o", log_path,
+         *CLI_ARGS, "--device", dev.type], capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, **env))
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("tuning counters: ")]
+    if out.returncode != 0 or len(lines) != 1:
+        raise RuntimeError(f"{name}: exited {out.returncode}:\n"
+                           f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    logd = parse_benchmark_log(log_path)
+    counters = json.loads(lines[0][len("tuning counters: "):])
+    check_frame_launches(counters["launches"], len(logd["frame"]), name)
+    return {"positions": np.stack([logd["X"], logd["Y"], logd["Z"]], 1),
+            "ms": {k: 1e3 * float(np.mean(logd[k][5:]))
+                   for k in ("integration", "raycasting", "computation")},
+            "counters": counters, "wall_s": time.monotonic() - t0}
+
+
+def phase_tuning(dev: torch.device, man: dict, work: str,
+                 main: dict) -> dict:
+    """(a) the single-phase march and (b) the 8x8x2 block integrate
+    through the CLI, each against phase 4 bit for bit; (c) the tuning
+    tools at a few values each."""
+    from slambench_tpu_torch.eval.check_kernels import aggregate_kernel_log
+    from slambench_tpu_torch.tools import autotune
+
+    log("[14/16 tuning] the clip through the CLI with SLAMBENCH_MARCH_"
+        "COMPACT=0 and with SLAMBENCH_INTEGRATE_BLOCKS=8x8x2; autotune, "
+        "march_census, probe_integrate")
+    out = {}
+    for key, env, phase in (("a", {"SLAMBENCH_MARCH_COMPACT": "0"},
+                             "raycasting"),
+                            ("b", {"SLAMBENCH_INTEGRATE_BLOCKS": "8x8x2"},
+                             "integration")):
+        r = tuning_run(dev, man, work, f"tuning_{key}", env)
+        same = np.array_equal(r["positions"], main["positions"])
+        d = float(np.abs(r["positions"] - main["positions"]).max())
+        log(f"  ({key}) {env}: logged positions "
+            f"{'equal phase 4 bit for bit' if same else 'DIFFER'} (largest "
+            f"difference {d:.3e} m); {phase} ms a frame (frames 5..) "
+            f"{r['ms'][phase]:.3f}, phase 4 {main['ms'][phase]:.3f}; "
+            f"computation {r['ms']['computation']:.3f}, phase 4 "
+            f"{main['ms']['computation']:.3f}; run {r['wall_s']:.1f} s")
+        if not same:
+            raise RuntimeError(f"({key}) positions differ from phase 4's")
+        out[key] = {k: v for k, v in r.items() if k != "positions"}
+    marches = out["a"]["counters"]["march"]
+    if marches["phase2_substeps"] or marches["compact"] or marches["full"]:
+        raise RuntimeError(f"(a) a single-phase run took a phase 2: "
+                           f"{marches}")
+    log(f"  (a) single-phase marches {json.dumps(marches)}; phase 4 "
+        f"(two-phase) {json.dumps(main['march'])}")
+    blocks = out["b"]["counters"]["blocks"]
+    if not blocks["calls"]:
+        raise RuntimeError("(b) the block integrate never ran")
+    share = blocks["visible"] / blocks["blocks"]
+    out["b"]["visible_share"] = share
+    log(f"  (b) integrate_blocks 8x8x2: {blocks['calls']} calls, visible "
+        f"block share {share:.4f}")
+
+    # (c) the tools.
+    sweeps = {"reduce": ([128, 256, 512, 1024], 76800, 16),
+              "mip": ([4, 8, 16], VOLUME, 3),
+              "refine": (["8:4", "4:2", "2:2"], VOLUME, 3),
+              "blocks": (["1x1x1", "8x8x1", "8x8x2", "16x16x2"], VOLUME, 3)}
+    lines, tuned = [], {}
+    for kernel, (values, size, iters) in sweeps.items():
+        buf = io.StringIO()
+        rows = getattr(autotune, f"sweep_{kernel}")(values, size, iters, dev,
+                                                    out=buf)
+        lines += buf.getvalue().splitlines()
+        tuned[kernel] = [[str(r[0]), r[1], r[2]] for r in rows]
+    for line in lines:
+        log(f"    {line}")
+    agg = aggregate_kernel_log(lines)
+    if len(agg) != sum(len(v[0]) for v in sweeps.values()):
+        raise RuntimeError(f"autotune: {len(agg)} check_kernels rows for "
+                           f"{lines}")
+    out["autotune"] = tuned
+    census_json = os.path.join(work, "census.json")
+    probe_json = os.path.join(work, "probe_integrate.json")
+    common = ["--device", dev.type, "--volume", str(VOLUME)]
+    for tool, args, path in (
+            ("march_census", ["--raw", man["raw"], "--frames", "8",
+                              "--json", census_json], census_json),
+            ("probe_integrate", ["--json", probe_json], probe_json)):
+        t0 = time.monotonic()
+        r = subprocess.run([sys.executable, "-m",
+                            f"slambench_tpu_torch.tools.{tool}", *args,
+                            *common], capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode != 0:
+            raise RuntimeError(f"{tool} exited {r.returncode}:\n"
+                               f"{r.stderr[-3000:]}")
+        with open(path) as f:
+            out[tool] = json.load(f)
+        log(f"  {tool} ({time.monotonic() - t0:.1f} s): "
+            f"{json.dumps(out[tool])}")
+    census = out["march_census"]
+    if census["counters_per_frame"]["substeps"] \
+            > census["counters_graph"]["substeps"]:
+        raise RuntimeError(f"march_census: the early-exit march ran more "
+                           f"substeps than the full budget: {census}")
+    return out
+
+
+def phase_capability(dev: torch.device) -> dict:
+    """JAX's 1024^3 capability run (tests/test_sharded.py:206) on two
+    gloo ranks on the card with 8x8x2 blocks, through
+    tools/distributed_probe.py: each rank's ms, peak memory, and the
+    monolithic integrate's fit."""
+    log("[15/16 capability] ShardedKFusion 1024^3 / 4.8 m at 64x48 on "
+        "--mesh z:2 (two gloo ranks on the card), "
+        "SLAMBENCH_INTEGRATE_BLOCKS=8x8x2")
+    cmd = [sys.executable, "-m", "slambench_tpu_torch.tools.distributed_probe",
+           "--launch", "2", "--device", dev.type, "--capability",
+           str(CAPABILITY_VOLUME)]
+    t0 = time.monotonic()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ,
+                                  SLAMBENCH_INTEGRATE_BLOCKS="8x8x2"))
+    recs = [json.loads(ln) for ln in out.stdout.strip().splitlines()
+            if ln.startswith("{")]
+    if out.returncode != 0 or len(recs) != 2:
+        raise RuntimeError(f"capability run exited {out.returncode}:\n"
+                           f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    caps = [r["capability"] for r in recs]
+    for c in caps:
+        if not (c["integrated"] and c["wall_hits"] > 0 and c["zero_crossing"]
+                and c["integrate_block_grid"] == [8, 8, 2]):
+            raise RuntimeError(f"capability: {c}")
+        peak = c["peak_bytes"]
+        log(f"  rank: slab {c['slab_z']} planes; ms {json.dumps(c['ms'])}; "
+            f"wall hits {c['wall_hits']} of {64 * 48}; subsampled tsdf "
+            f"{c['tsdf_min']}..{c['tsdf_max']}; peak "
+            f"{'n/a' if peak is None else f'{peak / 2 ** 30:.3f} GiB'}; "
+            f"monolithic integrate {json.dumps(c['monolithic'])}")
+    log(f"  {time.monotonic() - t0:.1f} s")
+    return {"ranks": caps, "wall_s": time.monotonic() - t0}
 
 
 # The gather kernels' rows: the probe entry each is timed by, and the
@@ -2241,8 +2505,12 @@ def main() -> int:
         done("dashboard")
         msh = phase_mesh(dev, man, work, mp, kr)
         done("mesh")
-    pr = phase_probes(dev)
-    done("probe path")
+        pr = phase_probes(dev)
+        done("probe path")
+        tun = phase_tuning(dev, man, work, mp)
+        done("tuning")
+    cap = phase_capability(dev)
+    done("capability")
     k1, k1f, k2, k2f = kr["k1"], kr["k1f"], kr["k2"], kr["k2f"]
     k2_0 = k2["by_shape"]["240x320"]
     k2f_0 = k2f["by_shape"]["240x320"]
@@ -2274,7 +2542,7 @@ def main() -> int:
          "launches": pr["launches"]["K2"], "max_abs_err": k2["max_abs_err"],
          "ms": k2_0["ms"], "plain_ms": k2_0["plain_ms"],
          "bound_ms": k2_0["bound_ms"], "bound_by": k2_0["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "by_threads": k2["by_threads"]},
         {"name": "K2F track_reduce (track fused into K2)", "route": "cuda",
          "source": "slambench_tpu_torch/ops/hopper/csrc/reduce.cu",
          "replaces": "slambench_tpu/ops/pallas/reduce.py:87",
@@ -2283,7 +2551,7 @@ def main() -> int:
          "max_abs_err": k2f["max_abs_err"],
          "ms": k2f_0["ms"], "plain_ms": k2f_0["plain_ms"],
          "bound_ms": k2f_0["bound_ms"], "bound_by": k2f_0["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "by_threads": k2f["by_threads"]},
         # K2F at the alignment's shape: the keyframe phase's
         # loop-closure ICP (the --keyframes route's launches there).
         {"name": "K2F track_reduce, loop-closure alignment "
@@ -2346,7 +2614,7 @@ def main() -> int:
                               v["bound_ns_per_elem"], v["host_bound"]]
               for tool in ("mosaic", "gather")
               for k, v in pr[tool].items() if isinstance(v, dict)}
-    log("[14/14 report]")
+    log("[16/16 report]")
     mp_report = {k: v for k, v in mp.items()
                  if k not in ("positions", "final_pose", "raycasting_s",
                               "ate_by_frame")}
@@ -2355,6 +2623,7 @@ def main() -> int:
                     "inputs": io_, "keyframes": kfp, "census": cen,
                     "dashboard": dsh,
                     "mesh": {k: v for k, v in msh.items() if k != "kernels"},
+                    "tuning": tun, "capability": cap,
                     "k1f": k1f, "k2_by_shape": k2["by_shape"],
                     "k2f_by_shape": k2f["by_shape"]}))
     log("probe entries [count, ns/elem, library ns/elem, bound ns/elem, "

@@ -69,11 +69,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                            vp, vp, vp]
     lib.slb_mm2m_bilateral_f32.restype = ci
     lib.slb_reduce_track_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                         vp]
+                                         ci, vp]
     lib.slb_reduce_track_f32.restype = ci
     lib.slb_track_reduce_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                         vp, ci, ci, ci, cf, cf, ci, ci, vp,
-                                         vp, vp]
+                                         vp, ci, ci, ci, cf, cf, ci, ci, ci,
+                                         vp, vp, vp]
     lib.slb_track_reduce_f32.restype = ci
     return bind_gather(lib)
 

@@ -51,14 +51,19 @@
 // launch (~2.5 us) and the latency of the chain pose -> projection ->
 // gather; the wrapper's grid gives about one pixel per thread at 240x320
 // (300 blocks of 256) to keep enough gathers in flight.
+//
+// Threads a block: both entries are instantiated for 128, 256, 512 and
+// 1024 threads and take the count as an argument (the work-group size
+// that the reference's OCLWrapper tunes, thirdparty/OCLWrapper.cpp:
+// 77-132; the port's stand-in for JAX's SLAMBENCH_TILE_ROWS). 256 is the
+// default and the kernel of earlier versions; another count changes the
+// grid and with it the order of the sums.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kOut = 32;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kInvalid = -2.0f;  // params.INVALID
 
 // One tracked pixel's row [e, J0..J5] into the sums.
@@ -87,12 +92,14 @@ __device__ __forceinline__ void add_rejected(float (&acc)[kOut], int r) {
   }
 }
 
-// Sums `acc` over the block and writes the block's partial; the last block
-// to arrive sums all partials in block order into `out`.
+// Sums `acc` over the block of kThreads and writes the block's partial;
+// the last block to arrive sums all partials in block order into `out`.
+template <int kThreads>
 __device__ __forceinline__ void block_finish(float (&acc)[kOut],
                                              float* __restrict__ partials,
                                              unsigned int* ticket,
                                              float* __restrict__ out) {
+  constexpr int kWarps = kThreads / 32;
   __shared__ float warp_sums[kWarps][kOut];
   __shared__ bool is_last;
 #pragma unroll
@@ -141,7 +148,7 @@ __device__ __forceinline__ void block_finish(float (&acc)[kOut],
   }
 }
 
-template <class Pixel>
+template <int kThreads, class Pixel>
 __device__ __forceinline__ void reduce_pixels(const Pixel& pixel, int n,
                                               float* partials,
                                               unsigned int* ticket,
@@ -152,7 +159,7 @@ __device__ __forceinline__ void reduce_pixels(const Pixel& pixel, int n,
   const int stride = gridDim.x * blockDim.x;
   for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride)
     pixel(p, acc);
-  block_finish(acc, partials, ticket, out);
+  block_finish<kThreads>(acc, partials, ticket, out);
 }
 
 // ------------------------- unfused: TrackData in ------------------------ //
@@ -179,10 +186,11 @@ struct TrackDataPixel {
   }
 };
 
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 reduce_track_kernel(TrackDataPixel src, float* partials,
                     unsigned int* ticket, float* out) {
-  reduce_pixels(src, src.n, partials, ticket, out);
+  reduce_pixels<kThreads>(src, src.n, partials, ticket, out);
 }
 
 // ----------------------- fused: track, then reduce ---------------------- //
@@ -278,6 +286,7 @@ struct TrackPixel {
   }
 };
 
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 track_reduce_kernel(TrackPixel src, const float* __restrict__ pose,
                     const float* __restrict__ view, float* partials,
@@ -292,25 +301,58 @@ track_reduce_kernel(TrackPixel src, const float* __restrict__ pose,
   TrackPixel px = src;
   px.pose = mats;
   px.view = mats + 16;
-  reduce_pixels(px, px.n, partials, ticket, out);
+  reduce_pixels<kThreads>(px, px.n, partials, ticket, out);
 }
+
+// Launches `kernel<threads>` for threads in {128, 256, 512, 1024}; false
+// for any other count.
+template <template <int> class Launch, class... Args>
+bool launch_threads(int threads, Args... args) {
+  switch (threads) {
+    case 128: Launch<128>::run(args...); return true;
+    case 256: Launch<256>::run(args...); return true;
+    case 512: Launch<512>::run(args...); return true;
+    case 1024: Launch<1024>::run(args...); return true;
+    default: return false;
+  }
+}
+
+template <int kThreads>
+struct LaunchReduce {
+  static void run(int nblocks, cudaStream_t s, TrackDataPixel src,
+                  float* partials, unsigned int* ticket, float* out) {
+    reduce_track_kernel<kThreads><<<nblocks, kThreads, 0, s>>>(
+        src, partials, ticket, out);
+  }
+};
+
+template <int kThreads>
+struct LaunchTrackReduce {
+  static void run(int nblocks, cudaStream_t s, TrackPixel src,
+                  const float* pose, const float* view, float* partials,
+                  unsigned int* ticket, float* out) {
+    track_reduce_kernel<kThreads><<<nblocks, kThreads, 0, s>>>(
+        src, pose, view, partials, ticket, out);
+  }
+};
 
 }  // namespace
 
 // `partials` holds at least nblocks x 32 floats and `ticket` is 0 before
 // the launch (the kernel leaves it 0); nblocks is 1..max_blocks, the
-// partials' capacity.
+// partials' capacity; threads is 128, 256, 512 or 1024.
 extern "C" int slb_reduce_track_f32(const int* result, const float* error,
                                     const float* J, float* partials,
                                     unsigned int* ticket, float* out, int n,
-                                    int nblocks, int max_blocks,
+                                    int nblocks, int max_blocks, int threads,
                                     void* stream) {
   if (n < 0 || nblocks < 1 || nblocks > max_blocks)
     return static_cast<int>(cudaErrorInvalidValue);
   TrackDataPixel src{result, error, J, n};
-  reduce_track_kernel<<<nblocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      src, partials, ticket, out);
+  if (!launch_threads<LaunchReduce>(threads, nblocks,
+                                    static_cast<cudaStream_t>(stream), src,
+                                    partials, ticket, out))
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -322,8 +364,11 @@ extern "C" int slb_track_reduce_f32(
     const float* ref_normal, const float* pose, const float* view,
     int* result, float* partials, unsigned int* ticket, float* out, int n,
     int H, int W, float dist_threshold, float normal_threshold, int nblocks,
-    int max_blocks, void* stream, void* ev_start, void* ev_end) {
-  if (n < 0 || H < 1 || W < 1 || nblocks < 1 || nblocks > max_blocks)
+    int max_blocks, int threads, void* stream, void* ev_start,
+    void* ev_end) {
+  if (n < 0 || H < 1 || W < 1 || nblocks < 1 || nblocks > max_blocks ||
+      (threads != 128 && threads != 256 && threads != 512 &&
+       threads != 1024))
     return static_cast<int>(cudaErrorInvalidValue);
   TrackPixel src{in_vertex, in_normal, ref_vertex, ref_normal, result,
                  nullptr, nullptr, n, H, W, dist_threshold,
@@ -334,8 +379,8 @@ extern "C" int slb_track_reduce_f32(
         cudaEventRecord(static_cast<cudaEvent_t>(ev_start), s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  track_reduce_kernel<<<nblocks, kThreads, 0, s>>>(src, pose, view,
-                                                   partials, ticket, out);
+  launch_threads<LaunchTrackReduce>(threads, nblocks, s, src, pose, view,
+                                    partials, ticket, out);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !ev_end) return static_cast<int>(err);
   return static_cast<int>(

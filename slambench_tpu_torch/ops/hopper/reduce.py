@@ -12,8 +12,19 @@ each, deterministic):
   or J in device memory; its plain twin is ``track_reduce_plain``. The
   ICP loop of ``pipeline.py`` calls it.
 
-On CPU tensors each wrapper runs its twin; on CUDA tensors it launches
-its kernel or raises. ``track_reduce_cuda``'s ``span`` (a
+Both take ``threads``, the threads a block of the launch: 128, 256, 512
+or 1024, each a template instantiation of the same kernel. It stands in
+for JAX's ``SLAMBENCH_TILE_ROWS`` (``ops/pallas/reduce.py:35``, rows a
+Pallas grid step, which has no CUDA meaning): the work-group size that
+the reference's OCLWrapper tunes (``thirdparty/OCLWrapper.cpp:77-132``;
+``tools/autotune.py reduce`` sweeps it). The default, 256, is
+``SLAMBENCH_REDUCE_THREADS`` when that is set (another value raises).
+The grid is ``ceil(n / threads)`` blocks, capped at ``MAX_BLOCKS``, so
+the order of the sums depends on ``threads`` and the pixel count.
+
+On CPU tensors each wrapper runs its twin (``threads`` is checked, and
+has no other meaning there); on CUDA tensors it launches its kernel or
+raises. ``track_reduce_cuda``'s ``span`` (a
 ``utils/timers.py`` span, or None) has its two CUDA events recorded by
 the C entry point right around the launch; on the CPU it is entered
 around the twin.
@@ -21,6 +32,7 @@ around the twin.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
 import torch
@@ -31,10 +43,21 @@ from slambench_tpu_torch.ops.track import TrackData, track
 from slambench_tpu_torch.ops.track import reduce_track as plain
 from slambench_tpu_torch.utils.timers import NULL_SPAN
 
-THREADS = 256
+THREAD_COUNTS = (128, 256, 512, 1024)
+
+
+def _threads_from_env() -> int:
+    raw = os.environ.get("SLAMBENCH_REDUCE_THREADS", "256")
+    if raw not in tuple(str(t) for t in THREAD_COUNTS):
+        raise ValueError(f"SLAMBENCH_REDUCE_THREADS={raw!r}: use one of "
+                         f"{THREAD_COUNTS}")
+    return int(raw)
+
+
+THREADS = _threads_from_env()
 # The grid gives one pixel per thread up to 4 blocks per SM of an H100
-# (132 SMs); larger inputs loop. It depends only on the pixel count, so
-# the kernels' summation order does too.
+# (132 SMs); larger inputs loop. It depends only on the pixel count and
+# the threads a block, so the kernels' summation order does too.
 MAX_BLOCKS = 4 * 132
 
 # Kernel launches since the last reset (chip_smoke.py reads these).
@@ -50,8 +73,14 @@ _Scratch = Tuple[torch.Tensor, torch.Tensor]
 _scratch: Dict[Tuple[torch.device, int], _Scratch] = {}
 
 
-def grid_blocks(n: int) -> int:
-    return max(1, min(MAX_BLOCKS, -(-n // THREADS)))
+def grid_blocks(n: int, threads: int = THREADS) -> int:
+    return max(1, min(MAX_BLOCKS, -(-n // threads)))
+
+
+def _check_threads(threads: int) -> None:
+    if threads not in THREAD_COUNTS:
+        raise ValueError(f"threads must be one of {THREAD_COUNTS}, got "
+                         f"{threads}")
 
 
 def _scratch_for(device: torch.device, stream: int) -> _Scratch:
@@ -78,9 +107,11 @@ def _check_contiguous(tensors, what: str) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
-def reduce_track_cuda(data: TrackData) -> torch.Tensor:
+def reduce_track_cuda(data: TrackData, threads: int = THREADS
+                      ) -> torch.Tensor:
     """Packed 32-float reduction of TrackData (ops.track contract)."""
     global launches
+    _check_threads(threads)
     result, error, J = data["result"], data["error"], data["J"]
     if result.dtype != torch.int32 or error.dtype != torch.float32 \
             or J.dtype != torch.float32:
@@ -101,7 +132,7 @@ def reduce_track_cuda(data: TrackData) -> torch.Tensor:
     status = build.load().slb_reduce_track_f32(
         result.data_ptr(), error.data_ptr(), J.data_ptr(),
         partials.data_ptr(), ticket.data_ptr(), out.data_ptr(), n,
-        grid_blocks(n), MAX_BLOCKS, stream)
+        grid_blocks(n, threads), MAX_BLOCKS, threads, stream)
     build.check(status, "reduce kernel")
     launches += 1
     return out
@@ -125,13 +156,15 @@ def track_reduce_cuda(in_vertex: torch.Tensor,
                       view: torch.Tensor,
                       dist_threshold: float = params.DIST_THRESHOLD,
                       normal_threshold: float = params.NORMAL_THRESHOLD,
-                      span=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                      span=None, threads: int = THREADS
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ICP iteration's data term, ``ops/track.py:track_and_reduce``
     without the TrackData: returns (packed 32 floats, result codes
     [h, w] int32). ``in_*`` are [3, h, w] level maps, ``ref_*`` [3, H, W]
     at full size, ``pose`` and ``view`` [4, 4]; all float32 on one
     device. Nothing is read back to the host."""
     global fused_launches, fused_captured
+    _check_threads(threads)
     tensors = (in_vertex, in_normal, ref_vertex, ref_normal, pose, view)
     if any(t.dtype != torch.float32 for t in tensors):
         raise ValueError("dtypes must all be float32, got "
@@ -163,7 +196,8 @@ def track_reduce_cuda(in_vertex: torch.Tensor,
         ref_normal.data_ptr(), pose.data_ptr(), view.data_ptr(),
         result.data_ptr(), partials.data_ptr(), ticket.data_ptr(),
         out.data_ptr(), n, H, W, dist_threshold, normal_threshold,
-        grid_blocks(n), MAX_BLOCKS, stream, *span.device_events())
+        grid_blocks(n, threads), MAX_BLOCKS, threads, stream,
+        *span.device_events())
     build.check(status, "track_reduce kernel")
     if torch.cuda.is_current_stream_capturing():
         fused_captured += 1

@@ -7,7 +7,8 @@ shard, as ``shard_map`` runs one program per device:
 * **TSDF z-slabs** — ``tsdf`` / ``weight`` hold the rank's
   ``[slab_z, Y, X]`` planes; everything else is replicated. Integration
   fuses the replicated depth into the slab (``ops/integrate.py`` with
-  ``z_offset`` / ``z_total``): no communication.
+  ``z_offset`` / ``z_total``; with ``SLAMBENCH_INTEGRATE_BLOCKS``, over
+  the slab's frustum-culled blocks): no communication.
 * **Slab-composite raycast with halo exchange** — every rank marches the
   whole ray grid, but each ray only over the interval in which it
   crosses the rank's slab, entered one ``large_step`` early so a
@@ -53,7 +54,7 @@ from slambench_tpu_torch.geometry import (
     mat4mul, normalize3, rigid_inverse,
 )
 from slambench_tpu_torch.ops.hopper.bilateral import bilateral_filter_cuda
-from slambench_tpu_torch.ops.integrate import integrate
+from slambench_tpu_torch.ops.integrate import integrate, integrate_blocks
 from slambench_tpu_torch.ops.preprocess import mm2meters
 from slambench_tpu_torch.ops.raycast import camera_rays, ray_box_clip
 from slambench_tpu_torch.ops.raycast_fast import (
@@ -338,14 +339,24 @@ class ShardedKFusion(KFusion):
                           gate):
         """Fuse the depth into this rank's slab (its planes' global z);
         as in JAX, no min-mip is kept: the slab raycast builds one of the
-        halo-extended slab every frame."""
-        sz = self.volume_resolution[2]
-        with self.timings.span("integrate", state.tsdf.numel()):
-            tsdf, weight = integrate(
-                state.tsdf, state.weight, state.float_depth,
+        halo-extended slab every frame. With a block grid, the slab's
+        own frustum-culled blocks (JAX ``parallel/step.py:460-479``):
+        ``max(1, NZ // ranks)`` z-blocks a slab, and the monolithic
+        integrate where they do not divide the slab (JAX's rule) or on
+        the gated route."""
+        args = (state.tsdf, state.weight, state.float_depth,
                 rigid_inverse(pose), get_camera_matrix(self._k), self.mu,
-                params.MAX_WEIGHT, self.volume_dimensions, gate=gate,
-                z_offset=self.z0, z_total=sz)
+                params.MAX_WEIGHT, self.volume_dimensions)
+        slab = dict(z_offset=self.z0, z_total=self.volume_resolution[2])
+        bz, by, bx = self.integrate_block_grid
+        bz = max(1, bz // self.n_shards)
+        with self.timings.span("integrate", state.tsdf.numel()):
+            if gate is None and (bz, by, bx) != (1, 1, 1) \
+                    and not self.slab_z % bz:
+                tsdf, weight = integrate_blocks(*args, n_z=bz, n_y=by,
+                                                n_x=bx, **slab)
+            else:
+                tsdf, weight = integrate(*args, gate=gate, **slab)
         return tsdf, weight, state.mip
 
     def raycasting(self, state: KFusionState, *, early_exit: bool = True

@@ -9,7 +9,9 @@ phases of the reference's ``Kfusion`` class on one ``torch.device``:
 * preprocessing — mm2meters and the bilateral filter in one kernel (K1F);
 * tracking — half-sample pyramid, vertex/normal maps, coarse-to-fine
   ICP with one fused track + reduce kernel (K2) per iteration, checkPose;
-* integration — TSDF fusion and the min-mip rebuild;
+* integration — TSDF fusion and the min-mip rebuild; with
+  ``SLAMBENCH_INTEGRATE_BLOCKS`` set to a grid, the frustum-culled block
+  integrate (``integrate_blocks``) on the per-frame route;
 * raycasting — the next reference maps: the min-mip skip march, or the
   oracle trilinear march for the ``jnp`` backend.
 
@@ -61,7 +63,7 @@ from slambench_tpu_torch.geometry import (
 )
 from slambench_tpu_torch.ops.hopper.bilateral import mm2m_bilateral_cuda
 from slambench_tpu_torch.ops.hopper.reduce import track_reduce_cuda
-from slambench_tpu_torch.ops.integrate import integrate
+from slambench_tpu_torch.ops.integrate import integrate, integrate_blocks
 from slambench_tpu_torch.ops.preprocess import (
     half_sample_robust, make_gaussian,
 )
@@ -79,6 +81,30 @@ from slambench_tpu_torch.volume import init_volume
 
 BACKENDS = ("jnp", "fast", "pallas", "auto")
 MOTION_MODELS = ("none", "cv")
+
+
+def parse_block_grid(value: str, resolution: Tuple[int, int, int]
+                     ) -> Tuple[int, int, int]:
+    """The (z, y, x) block grid of ``SLAMBENCH_INTEGRATE_BLOCKS``, read
+    as JAX's ``KFusion`` reads it (``pipeline.py:161-179``): ``NZ``,
+    ``NZxNY`` or ``NZxNYxNX``; "0" is 1x1x1 (the monolithic integrate),
+    and so is "auto" or "": JAX picks 8x8x2 there only on a TPU. A grid
+    that does not divide ``resolution`` (x, y, z) is 1x1x1; a value of
+    another form, or a count below 1, raises ``ValueError``."""
+    if value in ("auto", "", "0"):
+        return (1, 1, 1)
+    try:
+        parts = [int(v) for v in value.lower().split("x")]
+    except ValueError:
+        parts = []
+    if not 1 <= len(parts) <= 3 or min(parts) < 1:
+        raise ValueError(f"SLAMBENCH_INTEGRATE_BLOCKS={value!r}: use NZ, "
+                         "NZxNY or NZxNYxNX (positive integers)")
+    nz, ny, nx = (parts + [1, 1])[:3]
+    rx, ry, rz = resolution
+    if rz % nz or ry % ny or rx % nx:
+        return (1, 1, 1)
+    return (nz, ny, nx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,6 +189,10 @@ class KFusion:
             "SLAMBENCH_WARM_START", "0") == "1")
         # Fine ray-march step = min(dim) / max(res) (reference: kernels.h:116).
         self.step = min(self.volume_dimensions) / max(self.volume_resolution)
+        # Frustum-culled block integrate (JAX pipeline.py:153-179).
+        self.integrate_block_grid = parse_block_grid(
+            os.environ.get("SLAMBENCH_INTEGRATE_BLOCKS", "auto"),
+            self.volume_resolution)
         self.gaussian = make_gaussian()
         self._levels = len(self.iterations)
         self._k = torch.tensor(self.camera, dtype=torch.float32,
@@ -351,12 +381,20 @@ class KFusion:
                           gate: Optional[torch.Tensor]):
         """Fuse ``state.float_depth`` into the volume from ``pose``
         (masked by ``gate`` when given) and rebuild the min-mip: (tsdf,
-        weight, mip)."""
-        with self.timings.span("integrate", state.tsdf.numel()):
-            tsdf, weight = integrate(
-                state.tsdf, state.weight, state.float_depth,
+        weight, mip). With a block grid the host-gated route runs the
+        frustum-culled ``integrate_blocks`` (the same bits); the gated
+        route (``gate``, no host read) keeps the monolithic masked
+        integrate, since the visible count depends on the data."""
+        args = (state.tsdf, state.weight, state.float_depth,
                 rigid_inverse(pose), get_camera_matrix(self._k), self.mu,
-                params.MAX_WEIGHT, self.volume_dimensions, gate=gate)
+                params.MAX_WEIGHT, self.volume_dimensions)
+        nz, ny, nx = self.integrate_block_grid
+        with self.timings.span("integrate", state.tsdf.numel()):
+            if gate is None and (nz, ny, nx) != (1, 1, 1):
+                tsdf, weight = integrate_blocks(*args, n_z=nz, n_y=ny,
+                                                n_x=nx)
+            else:
+                tsdf, weight = integrate(*args, gate=gate)
         with self.timings.span("minMip", tsdf.numel()):
             mip = make_min_mip(tsdf)
         return tsdf, weight, mip

@@ -15,7 +15,16 @@ N processes, each one rank of a ``torch.distributed`` group
      the single-device min-mip raycast (``raycast_fast_maps``) of the
      same volume and view: rank 0 reports the hit mismatch share, the
      largest vertex difference on common hits and the share of them
-     whose normals agree to a dot > 0.99.
+     whose normals agree to a dot > 0.99;
+  5. with ``--capability N``, JAX's 1024^3 capability setting
+     (``tests/test_sharded.py:206``) at an N^3 volume of 4.8 m: a
+     bootstrap integrate of a flat 2 m depth (64x48), then a frame with
+     tracking, integrate and raycast; the wall must show in
+     ``ref_normal`` and ``tsdf[:, ::N/16, ::N/16]`` (gathered) must
+     cross zero. Each rank reports both frames' ms, its peak device
+     memory, and whether one monolithic ``integrate`` of its slab fits
+     beside the state (its peak, or the out-of-memory error). The
+     integrate runs ``SLAMBENCH_INTEGRATE_BLOCKS``'s grid when set.
 
 Each rank prints one JSON line; the parent (``--launch N``, a test, or
 ``chip_smoke.py``) checks the collective results. Run by hand on the CPU
@@ -23,7 +32,7 @@ or on a card (ranks beyond the card count share it, over gloo):
 
   python -m slambench_tpu_torch.tools.distributed_probe --launch 2 \\
       [--device cpu] [--full-step]
-      [--raycast case.npz ...]
+      [--raycast case.npz ...] [--capability 1024]
   torchrun --nproc-per-node 2 -m slambench_tpu_torch.tools.distributed_probe
 """
 
@@ -33,6 +42,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -104,7 +114,71 @@ def raycast_case(mesh, path: str) -> dict:
             else 1.0}
 
 
-def rank_main(device: str, full_step: bool, raycasts=()) -> int:
+def capability(mesh, volume: int) -> dict:
+    """One rank's part of JAX's capability run at ``volume``^3
+    (``tests/test_sharded.py:206``: 64x48, pyramid 4,3,3, a 2 m flat
+    depth, frame 0 then frame 3)."""
+    from slambench_tpu_torch.geometry import get_camera_matrix, rigid_inverse
+    from slambench_tpu_torch.ops.integrate import integrate
+    from slambench_tpu_torch.parallel.step import ShardedKFusion
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    kf = ShardedKFusion((64, 48), (volume,) * 3, (4.8,) * 3,
+                        (1.6, 2.4, 1.2), (4, 3, 3), (48.0, 48.0, 32.0, 24.0),
+                        mesh=mesh)
+    depth = np.full((48, 64), 2000, np.uint16)
+    ms = {}
+    t0 = time.perf_counter()
+    state = kf.init_state()
+    sync()
+    ms["init"] = 1e3 * (time.perf_counter() - t0)
+    for frame, name in ((0, "bootstrap"), (3, "frame3")):
+        t0 = time.perf_counter()
+        state = kf.process_frame(state, depth, frame)
+        sync()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+    stride = max(1, volume // 16)
+    sub = mesh.all_gather_rows(
+        state.tsdf[:, ::stride, ::stride].contiguous(), "capability_tsdf")
+    wall_hits = int((state.ref_normal[0] != -2).sum())
+    out = {"volume": volume, "slab_z": kf.slab_z,
+           "integrate_block_grid": list(kf.integrate_block_grid),
+           "integrated": bool(state.integrated), "ms": ms,
+           "wall_hits": wall_hits,
+           "tsdf_min": int(sub.min()), "tsdf_max": int(sub.max()),
+           "zero_crossing": bool(int(sub.min()) < 0 < int(sub.max())),
+           "peak_bytes": (torch.cuda.max_memory_allocated(dev) if cuda
+                          else None)}
+    # The monolithic integrate of this slab beside the state.
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        t0 = time.perf_counter()
+        integrate(state.tsdf, state.weight, state.float_depth,
+                  rigid_inverse(state.pose), get_camera_matrix(kf._k),
+                  kf.mu, 100.0, kf.volume_dimensions, z_offset=kf.z0,
+                  z_total=volume)
+        sync()
+        out["monolithic"] = {
+            "fits": True, "ms": 1e3 * (time.perf_counter() - t0),
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev) if cuda
+                           else None)}
+    except torch.cuda.OutOfMemoryError as err:
+        out["monolithic"] = {"fits": False, "error": str(err)[:300]}
+    return out
+
+
+def rank_main(device: str, full_step: bool, raycasts=(),
+              capability_volume: int = 0) -> int:
     from slambench_tpu_torch.parallel import distributed
 
     torch.set_num_threads(1)
@@ -141,6 +215,8 @@ def rank_main(device: str, full_step: bool, raycasts=()) -> int:
         if full_step:
             step_ok = _full_step(mesh)
         rays = [raycast_case(mesh, p) for p in raycasts]
+        cap = capability(mesh, capability_volume) if capability_volume \
+            else None
         print(json.dumps({
             "rank": rank, "ranks": n, "backend": mesh.backend,
             "device": str(mesh.device),
@@ -149,8 +225,11 @@ def rank_main(device: str, full_step: bool, raycasts=()) -> int:
             "ring": ext.tolist(), "ring_want": want.tolist(),
             "ring_ok": ring_ok, "full_step_pose_finite": step_ok,
             "raycast": rays if mesh.rank == 0 else None,
+            "capability": cap,
         }), flush=True)
-        ok = total == want_total and ring_ok and step_ok in (None, True)
+        ok = total == want_total and ring_ok and step_ok in (None, True) \
+            and (cap is None or (cap["integrated"] and cap["wall_hits"] > 0
+                                 and cap["zero_crossing"]))
         return 0 if ok else 1
     finally:
         mesh.close()
@@ -183,13 +262,17 @@ def main(argv=None) -> int:
     ap.add_argument("--raycast", action="append", default=[],
                     help="a case file (save_raycast_case): the slab "
                          "raycast against the single-device march")
+    ap.add_argument("--capability", type=int, default=0, metavar="N",
+                    help="also run JAX's capability setting at an N^3 "
+                         "volume (1024 in JAX)")
     ap.add_argument("--launch", type=int, default=0,
                     help="start this many ranks as subprocesses and print "
                          "their lines (exit 1 unless every rank passes)")
     ap.add_argument("--timeout", type=float, default=600.0)
     args = ap.parse_args(argv)
     if not args.launch:
-        return rank_main(args.device, args.full_step, args.raycast)
+        return rank_main(args.device, args.full_step, args.raycast,
+                         args.capability)
 
     from slambench_tpu_torch.parallel import distributed
     cmd = ["-m", "slambench_tpu_torch.tools.distributed_probe",
@@ -197,6 +280,8 @@ def main(argv=None) -> int:
                                        else [])
     for path in args.raycast:
         cmd += ["--raycast", os.path.abspath(path)]
+    if args.capability:
+        cmd += ["--capability", str(args.capability)]
     outs = distributed.launch(args.launch, cmd, cwd=REPO,
                               timeout=args.timeout)
     ok = True

@@ -13,14 +13,22 @@ object (and writes it to ``--out`` when given):
   fills), ``htod_copies_per_frame`` (host-to-device copies, each of
   which the host waits for unless it is from pinned memory), the hand
   kernels' device time (``hand_kernels_ms``) and the top kernels by
-  device time.
+  device time;
+* JAX's integrate rows, after the window, on the last frame's pose and
+  depth, each chained over ``--reps`` calls and timed by CUDA events:
+  ``integrate_plus_mip`` (the monolithic integrate and the min-mip
+  rebuild) and, when ``SLAMBENCH_INTEGRATE_BLOCKS`` gives the pipeline a
+  block grid, ``integrate_blocks_<grid>_plus_mip`` with
+  ``integrate_population`` (visible blocks and voxels at that pose;
+  ``tools/scaling_report.py`` prefers this row, as JAX's does).
 
 On the CPU (``--device cpu``) there is no device trace: the device
-fields are null ("not measured").
+fields and the rows' times are null ("not measured").
 
-Usage: python -m slambench_tpu_torch.tools.profile_frame
-       [--device cuda] [--volume 256] [--image 640x480] [--ratio 2]
-       [--warmup 6] [--frames 3] [--out profile.json]
+Usage: [SLAMBENCH_INTEGRATE_BLOCKS=8x8x2] python -m
+       slambench_tpu_torch.tools.profile_frame [--device cuda]
+       [--volume 256] [--image 640x480] [--ratio 2] [--warmup 6]
+       [--frames 3] [--reps 5] [--out profile.json]
 """
 
 from __future__ import annotations
@@ -36,12 +44,19 @@ from collections import defaultdict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from slambench_tpu_torch import params
+from slambench_tpu_torch.geometry import get_camera_matrix, rigid_inverse
 from slambench_tpu_torch.io.readers import RawDepthReader
 from slambench_tpu_torch.io.synthetic import generate_dataset
+from slambench_tpu_torch.ops.integrate import (
+    block_visibility, integrate, integrate_blocks,
+)
+from slambench_tpu_torch.ops.raycast_fast import make_min_mip
 from slambench_tpu_torch.pipeline import KFusion
 from slambench_tpu_torch.policy import (
     apply_precision_policy, resolve_device, synchronize,
 )
+from slambench_tpu_torch.tools.timing import per_launch_ms
 
 # Device-kernel name fragments of the hand kernels (ops/hopper/csrc).
 HAND_KERNELS = {"K1 bilateral": "metre_bilateral_kernel",
@@ -73,8 +88,46 @@ def _union_us(intervals) -> float:
     return total
 
 
+def integrate_rows(kf: KFusion, state, reps: int) -> dict:
+    """JAX's integrate rows (``slambench_tpu/tools/profile_frame.py:
+    282-335``) on ``state``'s pose and depth: ``{name: {"ms": ms a call
+    or None on the CPU}}``, plus ``integrate_population`` with a block
+    grid."""
+    args = (state.float_depth, rigid_inverse(state.pose),
+            get_camera_matrix(kf._k), kf.mu, params.MAX_WEIGHT,
+            kf.volume_dimensions)
+    nz, ny, nx = kf.integrate_block_grid
+    fns = {"integrate_plus_mip": lambda t, w: integrate(t, w, *args)}
+    if (nz, ny, nx) != (1, 1, 1):
+        fns[f"integrate_blocks_{nz}x{ny}x{nx}_plus_mip"] = \
+            lambda t, w: integrate_blocks(t, w, *args, n_z=nz, n_y=ny,
+                                          n_x=nx)
+    rows = {}
+    for name, fn in fns.items():
+        chain = {"tw": (state.tsdf, state.weight)}
+
+        def call(fn=fn):
+            t, w = fn(*chain["tw"])
+            make_min_mip(t)
+            chain["tw"] = (t, w)
+
+        call()
+        rows[name] = {"ms": per_launch_ms(call, reps, runs=3)[0]
+                      if kf.device.type == "cuda" else None}
+    if (nz, ny, nx) != (1, 1, 1):
+        vis = block_visibility(nz, ny, kf.volume_dimensions, args[1],
+                               args[2], state.float_depth, kf.mu, n_x=nx)
+        block_voxels = state.tsdf.numel() // vis.numel()
+        rows["integrate_population"] = {
+            "live_blocks": int(vis.sum()), "total_blocks": vis.numel(),
+            "live_voxels": int(vis.sum()) * block_voxels,
+            "total_voxels": state.tsdf.numel()}
+    return rows
+
+
 def profile_frames(device: torch.device, volume: int, image, ratio: int,
-                   warmup: int, frames: int, workdir: str) -> dict:
+                   warmup: int, frames: int, workdir: str,
+                   reps: int = 5) -> dict:
     apply_precision_policy()
     W, H = image
     man = generate_dataset(workdir, device, n_frames=warmup + frames,
@@ -144,6 +197,8 @@ def profile_frames(device: torch.device, volume: int, image, ratio: int,
                 n.startswith("Memcpy HtoD") for n, _, _ in ev) / frames,
             hand_kernels_ms=hand,
             top_kernels_ms={n[:90]: us / 1e3 / frames for n, us in top})
+    result["integrate_block_grid"] = list(kf.integrate_block_grid)
+    result.update(integrate_rows(kf, state, reps))
     return result
 
 
@@ -155,13 +210,15 @@ def main(argv=None) -> int:
     ap.add_argument("--ratio", type=int, default=2)
     ap.add_argument("--warmup", type=int, default=6)
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=5,
+                    help="chained calls a timing of the integrate rows")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     W, H = (int(v) for v in args.image.split("x"))
     with tempfile.TemporaryDirectory(prefix="slb_profile_") as work:
         result = profile_frames(device, args.volume, (W, H), args.ratio,
-                                args.warmup, args.frames, work)
+                                args.warmup, args.frames, work, args.reps)
     text = json.dumps(result)
     print(text)
     if args.out:

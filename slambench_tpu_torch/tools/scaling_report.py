@@ -3,9 +3,11 @@ single-card phase times and the analytic collective account (port of
 ``slambench_tpu/tools/scaling_report.py``).
 
 This is a projection, not a measurement: it divides the single-card
-phase times of ``tools/profile_frame.py`` (its ``phase_ms``) by the rank
-count and adds each frame's collectives (``parallel/comm.py``) at a
-link rate and a per-hop latency. ``tools/mesh_wallclock.py`` measures
+phase times of ``tools/profile_frame.py`` (its ``phase_ms``; for the
+integrate its ``integrate_blocks_<grid>_plus_mip`` row where the
+profile has one, as JAX's report prefers it) by the rank count and
+adds each frame's collectives (``parallel/comm.py``) at a link rate and
+a per-hop latency. ``tools/mesh_wallclock.py`` measures
 what the sharded program adds on one card.
 
 Model per n-rank mesh (1-D z mesh, ``parallel/step.py``):
@@ -58,6 +60,18 @@ def halo_planes(volume: int, dim: float = 4.8, mu: float = 0.1,
     return min(int(math.ceil(0.75 * mu / (dim / volume))) + 2, volume // n)
 
 
+def integration_ms(profile: dict) -> float:
+    """The integrate's ms a frame: as JAX's report does, the pipeline's
+    frustum-culled block row (``integrate_blocks_<grid>_plus_mip``) when
+    the profile has one with a time, else the integration phase."""
+    for key, row in profile.items():
+        if key.startswith("integrate_blocks_") \
+                and key.endswith("_plus_mip") and isinstance(row, dict) \
+                and row.get("ms") is not None:
+            return float(row["ms"])
+    return float(profile["phase_ms"].get("integration", 0.0))
+
+
 def project_scaling(profile: dict, image=(320, 240), volume=256,
                     halo=None, link_gbps=NVLINK4_GBPS, lat_us=1.0,
                     icp_iters=19, ns=(1, 2, 4, 8),
@@ -71,7 +85,7 @@ def project_scaling(profile: dict, image=(320, 240), volume=256,
     ph = profile["phase_ms"]
     t_pre = float(ph.get("preprocessing", 0.0))
     t_track = float(ph.get("tracking", 0.0))
-    t_int = float(ph.get("integration", 0.0))
+    t_int = integration_ms(profile)
     t_ray = float(ph.get("raycasting", 0.0))
     if frame_ms:
         s = frame_ms / (t_pre + t_track + t_int + t_ray)

@@ -9,6 +9,9 @@ calls before the spin ends (a plain-torch twin issues hundreds of small
 kernels a call), the reading is flagged ``host_bound``: it then includes
 the host's pacing.
 
+``call_ms`` is the tuning tools' reading: ``per_launch_ms`` on the card,
+the host clock on the CPU (where the tools label their lines so).
+
 ``bound_ms`` is the least time the card could take for the same work:
 the larger of the bytes moved over the memory rate and the operations
 over the float32 rate (published H100 SXM peaks, at the 700 W limit).
@@ -63,3 +66,17 @@ def per_launch_ms(fn: Callable[[], object], reps: int = 100,
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times), paced > runs // 2
+
+
+def call_ms(fn: Callable[[], object], reps: int, device: torch.device,
+            runs: int = 3) -> float:
+    """ms a call of ``fn``: ``per_launch_ms`` (the median of ``runs``) on
+    the card; on the CPU the host clock over ``reps`` calls after one
+    warm-up call."""
+    if device.type == "cuda":
+        return per_launch_ms(fn, reps, runs)[0]
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3

@@ -1,6 +1,6 @@
 """The port on a CUDA card: kernels K1, K1F (mm2meters fused into K1),
-K2 and K2F (track fused into K2) against their plain twins at the main
-path's shapes, one ICP level with no host read, mm2meters as IEEE
+K2 and K2F (track fused into K2, both at every threads-a-block count)
+against their plain twins at the main path's shapes, one ICP level with no host read, mm2meters as IEEE
 division, G1-G4 against their twins at the gather probes' shapes and on
 the edge cases of the redesigned kernels (out-of-range indices as the
 Pallas bodies treat them, G4's two routes), and a short end-to-end run
@@ -190,6 +190,35 @@ def test_fused_kernel_matches_twin(frame, dev, level):
     got2, res2 = reduce.track_reduce_cuda(*args)
     assert torch.equal(got, got2) and torch.equal(res, res2)
     assert int(got[28]) > 0
+
+
+@pytest.mark.parametrize("threads", [128, 256, 512, 1024])
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_k2_and_k2f_at_every_threads_count(frame, dev, level, threads):
+    """K2F and K2 instantiated at 128-1024 threads a block: the twin's
+    result codes, the reductions within K2's tolerance (another grid
+    sums in another order), two calls bit for bit; at 256 the default
+    launch's bits."""
+    args = _level_maps(frame, dev, level)
+    got, res = reduce.track_reduce_cuda(*args, threads=threads)
+    want, want_res = reduce.track_reduce_plain(*args)
+    assert torch.equal(res, want_res)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    got2, res2 = reduce.track_reduce_cuda(*args, threads=threads)
+    assert torch.equal(got, got2) and torch.equal(res, res2)
+    data = track(*args)
+    red = reduce.reduce_track_cuda(data, threads=threads)
+    torch.testing.assert_close(red, reduce.plain(data), rtol=1e-4,
+                               atol=1e-3)
+    if threads == 256:
+        assert torch.equal(got, reduce.track_reduce_cuda(*args)[0])
+        assert torch.equal(red, reduce.reduce_track_cuda(data))
+
+
+def test_k2f_refuses_other_threads_counts(frame, dev):
+    args = _level_maps(frame, dev, 2)
+    with pytest.raises(ValueError, match="threads"):
+        reduce.track_reduce_cuda(*args, threads=64)
 
 
 def test_fused_kernel_no_input_level(frame, dev):
