@@ -165,7 +165,18 @@ no ``ok`` line):
    ``ref_normal``, a zero crossing in ``tsdf[:, ::64, ::64]``; each
    rank's ms and peak memory, and whether a monolithic integrate of its
    slab fits;
-16. report — one JSON line of kernel results (time, plain and library
+16. ops and probes — JAX's per-op roofline rows
+   (``tools/profile_frame.py:op_rows``) on the traj2-like clip's state
+   after 6 frames at 256^3 / 320x240, each a CUDA graph replay and an
+   eager reading: every JAX row present with a positive time, the K1,
+   K1F and K2F wrappers launched and captured; ``tools/slice_probe.py``
+   at 256^3 and ``tools/probe_r3.py`` at 256^3 with their equalities
+   (slice sums bit for bit the scalar gathers', the all-visible slab loop
+   bit for bit ``integrate``, the row and lane gathers equal); the CLI
+   for 3 frames with ``SLAMBENCH_DEVICE=0`` (its log written) and with
+   ``SLAMBENCH_DEVICE`` at the card count (non-zero exit, ``hint:`` on
+   stderr); at small reps (``OPS_REPS``), about a minute;
+17. report — one JSON line of kernel results (time, plain and library
    time, bound, launches; with the mesh route's rows "K1, mesh band" and
    "K2F, mesh row block", and K2's and K2F's ``by_threads``), the
    nvidia-smi line, and the final ``{"ok": true, ...}`` line.
@@ -217,6 +228,22 @@ SLAB_NORMAL_SHARE = 0.98        # phase 12 (c), the final volume: the share of
 ALIGN_ITERS = 5                 # loop-closure ICP iterations a candidate
 JAX_COARSE_TAIL = (0.049, 0.038)  # test_keyframes_e2e.py: raw, corrected
 JAX_COARSE_REPLAY = (0.0374, 0.0345)  # test_ba_frontend.py: graph, BA
+OPS_WARMUP = 6                  # phase 16: frames before the op rows
+OPS_REPS = {"reps": 2, "loop_reps": 4, "solve_iters": 8, "runs": 2}
+OPS_CLI_BREAK = 2               # phase 16's CLI run: frames 0-2
+# JAX's op rows (slambench_tpu/tools/profile_frame.py:121-455) and its
+# scalar readings.
+JAX_OP_ROWS = (
+    "mm2meters", "bilateral_filter", "track_reduce_L0", "tracking_phase",
+    "icp_gather6_L0_per_iter", "icp_gather6_L1_per_iter",
+    "icp_gather6_L2_per_iter", "tracking_prep_only",
+    "update_pose_solve_per_iter", "icp_full_iter_L0", "integrate",
+    "integrate_plus_mip_fused", "make_min_mip", "raycast_cold",
+    "raycast_warm", "compute_frame_fused", "gather_vol_random_76800",
+    "gather_vol_coherent_76800", "gather_small_76800", "gather_2m_session",
+    "gather_2m_coherent")
+JAX_OP_SCALARS = ("session_gather_ns_per_elem",
+                  "session_gather_coherent_ns_per_elem", "device_eff_gbps")
 
 
 def log(msg: str) -> None:
@@ -325,7 +352,7 @@ def phase_device() -> str:
                          "smoke test needs a CUDA card")
     from slambench_tpu_torch.policy import apply_precision_policy
     smi = nvidia_smi_line()
-    log(f"[1/16 device] {smi} | torch {torch.__version__} | CUDA "
+    log(f"[1/17 device] {smi} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     apply_precision_policy()
     return smi
@@ -337,7 +364,7 @@ def phase_build() -> None:
     t0 = time.monotonic()
     path = build.build()
     build.load()
-    log(f"[2/16 build] {os.path.relpath(path)} in "
+    log(f"[2/17 build] {os.path.relpath(path)} in "
         f"{time.monotonic() - t0:.2f} s (nvcc {build.build_seconds:.2f} s)")
     t0 = time.monotonic()
     path = native.build()
@@ -365,7 +392,7 @@ def phase_kernels(dev: torch.device) -> dict:
     )
     from slambench_tpu_torch.tools.timing import bound_by, bound_ms
 
-    log("[3/16 kernels] kernel vs plain torch on the card")
+    log("[3/17 kernels] kernel vs plain torch on the card")
     dim = (4.8, 4.8, 4.8)
     poses = orbit_trajectory(12, [0.34 * 4.8, 0.5 * 4.8, 0.24 * 4.8])
     depth_mm = render_depth_frame(SyntheticScene(dim=dim), poses[11],
@@ -773,7 +800,7 @@ def phase_main_path(dev: torch.device, man: dict, work: str) -> dict:
         compute_ate, load_gt_trajectory, parse_benchmark_log,
     )
 
-    log(f"[4/16 main path] traj2-like clip, {N_FRAMES} frames 640x480, "
+    log(f"[4/17 main path] traj2-like clip, {N_FRAMES} frames 640x480, "
         f"CLI {' '.join(CLI_ARGS)}")
     from slambench_tpu_torch.ops import raycast_fast
 
@@ -1034,7 +1061,7 @@ def phase_scan(dev: torch.device, man: dict, work: str, main: dict) -> dict:
         compute_ate, load_gt_trajectory, parse_benchmark_log,
     )
 
-    log(f"[5/16 scan] traj2-like clip, {N_FRAMES} frames, chunks of "
+    log(f"[5/17 scan] traj2-like clip, {N_FRAMES} frames, chunks of "
         f"{SCAN_CHUNK}: CUDA graph replays against per-frame dispatch")
     result = scan_routes(dev, man)
     torch.cuda.empty_cache()
@@ -1143,7 +1170,7 @@ def phase_resume(dev: torch.device, man: dict, work: str,
     final pose must equal phase 4's within RESUME_TOL."""
     from slambench_tpu_torch.eval.check_pos import parse_benchmark_log
 
-    log(f"[6/16 resume] frames 0-{RESUME_AT - 1} with --checkpoint, then "
+    log(f"[6/17 resume] frames 0-{RESUME_AT - 1} with --checkpoint, then "
         f"--resume to frame {N_FRAMES - 1}")
     ck = os.path.join(work, "state.npz")
     rest_log = os.path.join(work, "resumed.log")
@@ -1180,7 +1207,7 @@ def phase_oracle_cv(dev: torch.device, man: dict, work: str) -> dict:
     )
 
     extra = ["--backend", "jnp", "--motion-model", "cv"]
-    log(f"[7/16 oracle + cv] {' '.join(extra)}, KERNEL_TIMINGS=1")
+    log(f"[7/17 oracle + cv] {' '.join(extra)}, KERNEL_TIMINGS=1")
     log_path = os.path.join(work, "oracle_cv.log")
     err = io.StringIO()
     reset_launches()
@@ -1285,7 +1312,7 @@ def phase_inputs(dev: torch.device, man: dict, work: str, main: dict,
     )
     from slambench_tpu_torch.tools import scene2raw
 
-    log(f"[8/16 inputs and observation] (a) {SCENE_FRAMES} frames as an "
+    log(f"[8/17 inputs and observation] (a) {SCENE_FRAMES} frames as an "
         f"ICL-NUIM scene + .scf, --stats --debug-nans --report-device "
         f"--break-at-frame {SCENE_BREAK_AT}")
     t0 = time.monotonic()
@@ -1711,7 +1738,7 @@ def phase_keyframes(dev: torch.device, work: str, main: dict) -> dict:
     )
     from slambench_tpu_torch.pipeline import KFusion
 
-    log(f"[9/16 keyframes] (a) revisiting orbit, {KF_FRAMES} frames 640x480, "
+    log(f"[9/17 keyframes] (a) revisiting orbit, {KF_FRAMES} frames 640x480, "
         f"amp {KF_AMP}, period {KF_PERIOD}, CLI {' '.join(CLI_ARGS)} "
         "--keyframes [--ba]")
     man = generate_dataset(os.path.join(work, "orbit"), dev,
@@ -1864,7 +1891,7 @@ def phase_census(dev: torch.device, man: dict, work: str) -> dict:
     updatePose launches a frame."""
     from slambench_tpu_torch.tools import icp_census
 
-    log(f"[10/16 census] tools/icp_census.py --device cuda on the "
+    log(f"[10/17 census] tools/icp_census.py --device cuda on the "
         f"traj2-like clip, {N_FRAMES} frames 640x480 -> 320x240, "
         f"{VOLUME}^3, pyramid {','.join(map(str, PYRAMID))}")
     path = os.path.join(work, "census.json")
@@ -1914,7 +1941,7 @@ def phase_dashboard(dev: torch.device, work: str) -> dict:
     from slambench_tpu_torch.frontend import dashboard, viewer
     from slambench_tpu_torch.io.synthetic import generate_dataset
 
-    log(f"[11/16 dashboard] frontend/dashboard.py and frontend/viewer.py "
+    log(f"[11/17 dashboard] frontend/dashboard.py and frontend/viewer.py "
         f"on a {DASH_FRAMES}-frame clip on the card")
     man = generate_dataset(os.path.join(work, "short"), dev,
                            n_frames=DASH_FRAMES, image_size=(640, 480),
@@ -2099,7 +2126,7 @@ def phase_mesh(dev: torch.device, man: dict, work: str, main: dict,
     with --scan-chunk 8 (CUDA graph replays with the collectives inside);
     (b) two ranks on the card under torchrun; (c) the slab raycast at 2
     ranks against the single-device march; (d) the distributed probe."""
-    log(f"[12/16 mesh] traj2-like clip, {N_FRAMES} frames, --mesh z:1 "
+    log(f"[12/17 mesh] traj2-like clip, {N_FRAMES} frames, --mesh z:1 "
         f"(in process) and z:2 (torchrun, two ranks on one card)")
     # (a) one rank, NCCL.
     a = mesh_run(dev, man, work, "mesh1")
@@ -2249,7 +2276,7 @@ def phase_probes(dev: torch.device) -> dict:
     from slambench_tpu_torch.ops.hopper import bilateral, gather, reduce
     from slambench_tpu_torch.tools import gather_probe, k1_split, mosaic_probe
 
-    log("[13/16 probe path] tools/mosaic_probe.py and tools/gather_probe.py "
+    log("[13/17 probe path] tools/mosaic_probe.py and tools/gather_probe.py "
         "at full shapes")
     bilateral.launches = 0
     bilateral.fused_launches = 0
@@ -2331,7 +2358,7 @@ def phase_tuning(dev: torch.device, man: dict, work: str,
     from slambench_tpu_torch.eval.check_kernels import aggregate_kernel_log
     from slambench_tpu_torch.tools import autotune
 
-    log("[14/16 tuning] the clip through the CLI with SLAMBENCH_MARCH_"
+    log("[14/17 tuning] the clip through the CLI with SLAMBENCH_MARCH_"
         "COMPACT=0 and with SLAMBENCH_INTEGRATE_BLOCKS=8x8x2; autotune, "
         "march_census, probe_integrate")
     out = {}
@@ -2416,7 +2443,7 @@ def phase_capability(dev: torch.device) -> dict:
     gloo ranks on the card with 8x8x2 blocks, through
     tools/distributed_probe.py: each rank's ms, peak memory, and the
     monolithic integrate's fit."""
-    log("[15/16 capability] ShardedKFusion 1024^3 / 4.8 m at 64x48 on "
+    log("[15/17 capability] ShardedKFusion 1024^3 / 4.8 m at 64x48 on "
         "--mesh z:2 (two gloo ranks on the card), "
         "SLAMBENCH_INTEGRATE_BLOCKS=8x8x2")
     cmd = [sys.executable, "-m", "slambench_tpu_torch.tools.distributed_probe",
@@ -2444,6 +2471,109 @@ def phase_capability(dev: torch.device) -> dict:
             f"monolithic integrate {json.dumps(c['monolithic'])}")
     log(f"  {time.monotonic() - t0:.1f} s")
     return {"ranks": caps, "wall_s": time.monotonic() - t0}
+
+
+def phase_ops(dev: torch.device) -> dict:
+    """JAX's per-op rows on the clip's state, the two probes, and the
+    CLI's device selection from the environment."""
+    from slambench_tpu_torch.eval.check_pos import parse_benchmark_log
+    from slambench_tpu_torch.ops.hopper import bilateral, reduce
+    from slambench_tpu_torch.tools import probe_r3, profile_frame, slice_probe
+
+    log(f"[16/17 ops and probes] tools/profile_frame.py:op_rows on the "
+        f"traj2-like clip after {OPS_WARMUP} frames ({VOLUME}^3, 320x240, "
+        f"{json.dumps(OPS_REPS)}), tools/slice_probe.py, tools/probe_r3.py, "
+        f"the CLI with SLAMBENCH_DEVICE")
+    t0 = time.monotonic()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="slb_ops_") as work:
+        kf, state, depths, man = profile_frame.clip_state(
+            dev, VOLUME, (640, 480), 2, OPS_WARMUP, 0, work)
+        bilateral.launches = bilateral.captured = 0
+        bilateral.fused_launches = bilateral.fused_captured = 0
+        reduce.fused_launches = reduce.fused_captured = 0
+        rows = profile_frame.op_rows(kf, state, depths[OPS_WARMUP - 1],
+                                     **OPS_REPS)
+        torch.cuda.synchronize()
+        counts = {"K1": [bilateral.launches, bilateral.captured],
+                  "K1F": [bilateral.fused_launches, bilateral.fused_captured],
+                  "K2F": [reduce.fused_launches, reduce.fused_captured]}
+        del kf, state, depths
+        bad = [n for n in JAX_OP_ROWS
+               if not (n in rows and rows[n]["ms"] and rows[n]["ms"] > 0
+                       and rows[n]["eager_ms"] and rows[n]["eager_ms"] > 0)]
+        bad += [n for n in JAX_OP_SCALARS if not (rows.get(n) or 0) > 0]
+        if bad:
+            raise RuntimeError(f"op rows without a positive time: {bad}")
+        unused = [k for k, (n, c) in counts.items() if not (n and c)]
+        if unused:
+            raise RuntimeError(f"op rows: kernels not launched and captured: "
+                               f"{unused} ({counts})")
+        for name, r in rows.items():
+            if isinstance(r, dict) and "eager_ms" in r:
+                paced = " (host-paced)" if r["host_bound"] else ""
+                log(f"  {name:28s} graph {r['ms']:9.4f} ms, eager "
+                    f"{r['eager_ms']:9.4f} ms{paced}, {r['mb']} MB, "
+                    f"{r['gbps']:.2f} GB/s")
+        log(f"  session gather {rows['session_gather_ns_per_elem']:.4f} "
+            f"ns/elem (coherent "
+            f"{rows['session_gather_coherent_ns_per_elem']:.4f}); stream "
+            f"probe {rows['device_eff_gbps']:.1f} GB/s of "
+            f"{rows['hbm_peak_gbps']:.0f}; launches, captures {counts}; "
+            f"{time.monotonic() - t0:.1f} s")
+        out.update(rows=rows, counts=counts)
+        t1 = time.monotonic()
+        out["slice_probe"] = slice_probe.run(dev, VOLUME, runs=2)
+        out["probe_r3"] = probe_r3.run(dev, VOLUME, 8, reps=2, runs=2)
+        variants = out["slice_probe"]["variants"]
+        log("  slice_probe (every sum equals its scalar twin's): " + "; ".join(
+            f"{k} {v['ms']:.4f} ms {v['ns_per_index']:.4f} ns/idx"
+            for k, v in variants.items()))
+        r3 = out["probe_r3"]
+        log("  probe_r3 (slabs, ref fetch and lane gather equal): "
+            + "; ".join(f"{k} {v:.4f}" for k, v in r3.items()
+                        if isinstance(v, float))
+            + f"; visible blocks {json.dumps(r3['visible_blocks'])}; "
+            f"{time.monotonic() - t1:.1f} s")
+
+        # The CLI's device from the environment: a run on card 0, and a
+        # refused ordinal (one past the last card) beside it.
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("SLAMBENCH_PLATFORM", "SLAMBENCH_DEVICE")}
+        def cli(name: str) -> list:
+            return [sys.executable, "-m",
+                    "slambench_tpu_torch.frontend.benchmark", "-i",
+                    man["raw"], "-o", os.path.join(work, name), *CLI_ARGS,
+                    "--break-at-frame", str(OPS_CLI_BREAK)]
+
+        bad_ordinal = str(torch.cuda.device_count())
+        refused = subprocess.Popen(
+            cli("refused.log"), env=dict(env, SLAMBENCH_DEVICE=bad_ordinal),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        log_path = os.path.join(work, "env.log")
+        ran = subprocess.run(cli("env.log"),
+                             env=dict(env, SLAMBENCH_DEVICE="0"),
+                             capture_output=True, text=True, timeout=600)
+        err = refused.communicate(timeout=600)[1]
+        if ran.returncode != 0:
+            raise RuntimeError(f"CLI with SLAMBENCH_DEVICE=0 exited "
+                               f"{ran.returncode}:\n{ran.stderr[-3000:]}")
+        frames = len(parse_benchmark_log(log_path)["frame"])
+        if frames != OPS_CLI_BREAK + 1:
+            raise RuntimeError(f"CLI with SLAMBENCH_DEVICE=0 logged {frames} "
+                               f"frames, expected {OPS_CLI_BREAK + 1}")
+        hint = [ln for ln in err.splitlines() if ln.startswith("hint:")]
+        if refused.returncode == 0 or not hint \
+                or "SLAMBENCH_DEVICE" not in err:
+            raise RuntimeError(f"CLI with SLAMBENCH_DEVICE={bad_ordinal} "
+                               f"exited {refused.returncode}, stderr:\n"
+                               f"{err[-3000:]}")
+        log(f"  CLI: SLAMBENCH_DEVICE=0 logged {frames} frames; "
+            f"SLAMBENCH_DEVICE={bad_ordinal} exited {refused.returncode} "
+            f"with \"{hint[0]}\"")
+    out["seconds"] = time.monotonic() - t0
+    log(f"  phase seconds {out['seconds']:.1f}")
+    return out
 
 
 # The gather kernels' rows: the probe entry each is timed by, and the
@@ -2511,6 +2641,8 @@ def main() -> int:
         done("tuning")
     cap = phase_capability(dev)
     done("capability")
+    ops = phase_ops(dev)
+    done("ops and probes")
     k1, k1f, k2, k2f = kr["k1"], kr["k1f"], kr["k2"], kr["k2f"]
     k2_0 = k2["by_shape"]["240x320"]
     k2f_0 = k2f["by_shape"]["240x320"]
@@ -2614,7 +2746,7 @@ def main() -> int:
                               v["bound_ns_per_elem"], v["host_bound"]]
               for tool in ("mosaic", "gather")
               for k, v in pr[tool].items() if isinstance(v, dict)}
-    log("[16/16 report]")
+    log("[17/17 report]")
     mp_report = {k: v for k, v in mp.items()
                  if k not in ("positions", "final_pose", "raycasting_s",
                               "ate_by_frame")}
@@ -2623,7 +2755,7 @@ def main() -> int:
                     "inputs": io_, "keyframes": kfp, "census": cen,
                     "dashboard": dsh,
                     "mesh": {k: v for k, v in msh.items() if k != "kernels"},
-                    "tuning": tun, "capability": cap,
+                    "tuning": tun, "capability": cap, "ops": ops,
                     "k1f": k1f, "k2_by_shape": k2["by_shape"],
                     "k2f_by_shape": k2f["by_shape"]}))
     log("probe entries [count, ns/elem, library ns/elem, bound ns/elem, "

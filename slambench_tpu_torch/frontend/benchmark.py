@@ -82,8 +82,17 @@ of the last per-frame window against ``parallel/comm.py``'s account,
 the number of checks, each rank's hand-kernel launches). ``--keyframes``
 with ``--mesh`` is refused, as in JAX.
 
-The device is ``cuda`` unless ``--device cpu`` is given; a missing card
-is an error, never a quiet fallback to the CPU.
+The device is ``--device`` when given, else the environment's
+(``utils/backend.py``, the reference's ``OPENCL_PLATFORM`` /
+``OPENCL_DEVICE``): ``SLAMBENCH_PLATFORM`` (``cpu``, or ``gpu`` /
+``cuda``) and ``SLAMBENCH_DEVICE=N`` (``cuda:N``), else ``cuda``; a
+missing card is an error, never a quiet fallback to the CPU, and a
+malformed variable raises naming it. ``SLAMBENCH_JIT_CACHE=DIR`` builds
+the kernels under ``DIR`` instead of the ignored ``_build/``
+directories (``ops/hopper/build.py:build_dir``). On a failure whose signature ``backend.explain_error``
+knows (out of device memory, no card, no or a failed nvcc, a NaN, a bad
+variable) the CLI prints ``hint: ...`` to stderr and re-raises, so the
+exit code stays non-zero.
 
 The input (``-i``) is a ``.raw`` file, an ICL-NUIM scene directory, or
 a ``.scf`` scene-config file (``io/readers.py``).
@@ -124,6 +133,7 @@ from slambench_tpu_torch.pipeline import KFusion, KFusionState, frame_gates
 from slambench_tpu_torch.policy import (
     apply_precision_policy, device_report, resolve_device, synchronize,
 )
+from slambench_tpu_torch.utils import backend
 from slambench_tpu_torch.utils import power as power_mod
 from slambench_tpu_torch.utils.checkpoint import load_state, save_state
 from slambench_tpu_torch.utils.perfstats import Stats, StatType
@@ -632,6 +642,18 @@ def write_trajectories(pgkf: PoseGraphKFusion, base: str) -> None:
 
 
 def main(argv=None) -> int:
+    """The CLI; a known failure prints its remedy (``hint: ...``) to
+    stderr and re-raises."""
+    try:
+        return _main(argv)
+    except Exception as exc:                   # noqa: BLE001
+        hint = backend.explain_error(exc)
+        if hint:
+            print(f"hint: {hint}", file=sys.stderr)
+        raise
+
+
+def _main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     for flag in NOT_PORTED_FLAGS:
         if any(a == flag or a.startswith(flag + "=") for a in argv):
@@ -662,11 +684,14 @@ def main(argv=None) -> int:
     ba = flag("--ba")            # implies --keyframes
     break_at = value("--break-at-frame")
     scan_chunk = int(value("--scan-chunk", "0"))
-    device_name = value("--device", "cuda")
+    device_name = value("--device") or backend.device_name()
     try:
         device = resolve_device(device_name)
     except RuntimeError as exc:
         print(f"ERROR: {exc}", file=sys.stderr)
+        hint = backend.explain_error(exc)
+        if hint:
+            print(f"hint: {hint}", file=sys.stderr)
         return 1
     if report:
         device_report(device, sys.stderr)

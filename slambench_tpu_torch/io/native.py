@@ -8,8 +8,10 @@ parser, the euclidean->planar converter and the RAW frame writer
 (reference: kfusion/include/interface.h, thirdparty/scene2raw.cpp).
 
 At first use the port builds its own copy with ``g++ -O3 -fPIC -shared
--std=c++17`` into ``native/_build/`` (listed in ``.gitignore``), named by
-a hash of the source and flags, and loads it with ``ctypes``; it never
+-std=c++17`` into ``native/_build/`` (listed in ``.gitignore``), or into
+``$SLAMBENCH_JIT_CACHE/native`` when that variable names a directory
+(``ops/hopper/build.py:build_dir``), named by a hash of the source and
+flags, and loads it with ``ctypes``; it never
 loads the JAX package's ``libslamio.so``. A missing compiler or a failed
 build raises with the compiler's output: there is no quiet fallback to
 the numpy readers (``SLAMBENCH_NATIVE_IO=0`` selects those, in
@@ -26,6 +28,8 @@ import subprocess
 from typing import Optional, Tuple
 
 import numpy as np
+
+from slambench_tpu_torch.ops.hopper.build import build_dir
 
 _NATIVE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
@@ -49,17 +53,19 @@ def find_cxx() -> str:
 
 
 def build() -> str:
-    """Compile ``SOURCE`` unless a library of its hash exists in
-    ``BUILD_DIR``; returns the library path."""
+    """Compile ``SOURCE`` unless a library of its hash exists in the
+    build directory (``BUILD_DIR`` unless ``SLAMBENCH_JIT_CACHE`` names
+    one); returns the library path."""
     with open(SOURCE, "rb") as f:
         digest = hashlib.sha256(
             " ".join(CXX_FLAGS).encode() + f.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libslamio_{digest}.so")
+    bdir = build_dir("native", BUILD_DIR)
+    out = os.path.join(bdir, f"libslamio_{digest}.so")
     if os.path.exists(out):
         return out
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [find_cxx(), *CXX_FLAGS, "-o", tmp, SOURCE]
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(bdir, exist_ok=True)
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         raise RuntimeError(f"native IO build failed (exit {proc.returncode})"

@@ -37,9 +37,10 @@ from slambench_tpu_torch.utils.timers import NULL_SPAN
 # Kernel launches since the last reset (chip_smoke.py reads these).
 launches = 0          # bilateral_filter_cuda
 fused_launches = 0    # mm2m_bilateral_cuda
-# mm2m_bilateral_cuda calls recorded into a CUDA graph under capture: not
-# launches; each replay of the graph launches them (graphs.py tallies).
-fused_captured = 0
+# Calls recorded into a CUDA graph under capture: not launches; each
+# replay of the graph launches them (graphs.py tallies).
+captured = 0          # bilateral_filter_cuda
+fused_captured = 0    # mm2m_bilateral_cuda
 
 
 def _lut(gaussian, r: int) -> np.ndarray:
@@ -65,7 +66,7 @@ def bilateral_filter_cuda(depth: torch.Tensor, gaussian,
                           e_d: float = params.E_DELTA,
                           r: int = params.RADIUS) -> torch.Tensor:
     """Bilateral-filtered depth; ``gaussian`` is the 5-tap host LUT."""
-    global launches
+    global launches, captured
     lut = _lut(gaussian, r)
     if depth.dim() != 2 or depth.dtype != torch.float32:
         raise ValueError(f"depth must be a 2-D float32 tensor, got "
@@ -80,7 +81,10 @@ def bilateral_filter_cuda(depth: torch.Tensor, gaussian,
         lut.ctypes.data_as(ctypes.c_void_p), _e2(e_d),
         torch.cuda.current_stream(depth.device).cuda_stream)
     build.check(status, "bilateral kernel")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out
 
 

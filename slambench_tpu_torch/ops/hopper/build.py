@@ -3,8 +3,9 @@
 At first use, ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (one
 process per source, all started together) and links the objects into one
 shared library with a plain C interface under ``_build/`` (listed in
-``.gitignore``), named by a hash of the sources and flags; the library
-is loaded with ``ctypes``. A plain C interface keeps PyTorch's
+``.gitignore``), or under ``$SLAMBENCH_JIT_CACHE/hopper`` when that
+variable names a directory, named by a hash of the sources and flags;
+the library is loaded with ``ctypes``. A plain C interface keeps PyTorch's
 headers out of the build, so it takes seconds rather than minutes.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises with
@@ -24,6 +25,7 @@ from typing import Optional
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+CACHE_ENV = "SLAMBENCH_JIT_CACHE"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -31,6 +33,16 @@ _lib: Optional[ctypes.CDLL] = None
 # What the last build printed (ptxas register / spill report) and took.
 build_log = ""
 build_seconds = 0.0
+
+
+def build_dir(sub: str = "hopper", default: Optional[str] = None) -> str:
+    """The directory a library builds in: ``$SLAMBENCH_JIT_CACHE/<sub>``
+    when the variable names one; unset, ``0`` or ``off``: ``default``
+    (by default ``BUILD_DIR``, the ignored ``_build/``)."""
+    path = os.environ.get(CACHE_ENV, "")
+    if path and path.lower() not in ("0", "off"):
+        return os.path.join(path, sub)
+    return BUILD_DIR if default is None else default
 
 
 def find_nvcc() -> str:
@@ -98,16 +110,17 @@ def build() -> str:
     the library path."""
     global build_log, build_seconds
     digest = _digest()
-    out = os.path.join(BUILD_DIR, f"libslb_hopper_{digest}.so")
+    bdir = build_dir()
+    out = os.path.join(bdir, f"libslb_hopper_{digest}.so")
     if os.path.exists(out):
         return out
     nvcc = find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(bdir, exist_ok=True)
     tag = f"{digest}.{os.getpid()}"
     t0 = time.monotonic()
     jobs = []
     for src in _sources():
-        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        obj = os.path.join(bdir, f"{os.path.basename(src)}.{tag}.o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -138,15 +151,16 @@ def build() -> str:
 
 def build_variants(sources: dict, prefix: str) -> dict:
     """Compile each ``{name: CUDA source}`` into a shared library of its
-    own under ``_build/`` (one ``nvcc`` process each, all started
+    own under ``build_dir()`` (one ``nvcc`` process each, all started
     together), for the tools that time copies of a kernel changed in one
     place; returns ``{name: CDLL}``, unbound."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    bdir = build_dir()
+    os.makedirs(bdir, exist_ok=True)
     nvcc, jobs = find_nvcc(), {}
     for name, src in sources.items():
         digest = hashlib.sha256(src.encode()).hexdigest()[:16]
-        cu = os.path.join(BUILD_DIR, f"{prefix}_{digest}.cu")
-        path = os.path.join(BUILD_DIR, f"lib{prefix}_{digest}.so")
+        cu = os.path.join(bdir, f"{prefix}_{digest}.cu")
+        path = os.path.join(bdir, f"lib{prefix}_{digest}.so")
         with open(cu, "w") as f:
             f.write(src)
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", path, cu]

@@ -32,7 +32,9 @@ carry the gather's bytes and bound, their own time as ``ns_per_elem``,
 and no library time. ``edge_cases`` lists the inputs the card checks
 hold each kernel to beside the probes' shapes (``chip_smoke.py`` phase
 3, ``tests/test_torch_cuda.py``), compared by ``equal_nan``. With
-``--device cpu`` the plain twins run and every timing field is null; ``--device cuda`` without a card raises.
+``--device cpu`` (or, without ``--device``, ``SLAMBENCH_PLATFORM=cpu``;
+``utils/backend.py``) the plain twins run and every timing field is
+null; ``--device cuda`` without a card raises.
 
 Usage: python -m slambench_tpu_torch.tools.gather_probe [--json out.json]
        [--device cuda] [--n 2097152]
@@ -51,6 +53,7 @@ from slambench_tpu_torch.policy import apply_precision_policy, resolve_device
 from slambench_tpu_torch.tools.mosaic_probe import (
     H, V, W, generator, l2_sectors, library_u16, measure, randint, report,
 )
+from slambench_tpu_torch.utils import backend
 
 NPIX = 76_800
 TINY = 512
@@ -315,12 +318,14 @@ def run(device: torch.device, n: int = 2 * 1024 * 1024,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default="")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=None,
+                    help="cpu or cuda[:N]; default: SLAMBENCH_PLATFORM and "
+                         "SLAMBENCH_DEVICE, else cuda")
     ap.add_argument("--n", type=int, default=2 * 1024 * 1024,
                     help="lookups of the depth-image lines (the 76,800-"
                          "lookup lines are capped at it too)")
     args = ap.parse_args(argv)
-    out = run(resolve_device(args.device), args.n)
+    out = run(resolve_device(backend.device_name(args.device)), args.n)
     text = json.dumps(out, indent=1)
     if args.json:
         with open(args.json, "w") as f:

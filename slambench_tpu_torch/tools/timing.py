@@ -9,6 +9,11 @@ calls before the spin ends (a plain-torch twin issues hundreds of small
 kernels a call), the reading is flagged ``host_bound``: it then includes
 the host's pacing.
 
+``graph_ms`` times the calls captured once as a CUDA graph and
+replayed: the card's time with no host pacing. ``timed_row`` gives a
+step both readings as one row, the form ``tools/profile_frame.py`` and
+``tools/probe_r3.py`` print.
+
 ``call_ms`` is the tuning tools' reading: ``per_launch_ms`` on the card,
 the host clock on the CPU (where the tools label their lines so).
 
@@ -21,7 +26,7 @@ from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -66,6 +71,84 @@ def per_launch_ms(fn: Callable[[], object], reps: int = 100,
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times), paced > runs // 2
+
+
+class Chain:
+    """A step that feeds ``fn`` its own last output (``carry``), starting
+    from ``start``. It holds the input of the first call made under a
+    capture: a graph's replays read it, and the chain would drop it."""
+
+    def __init__(self, fn: Callable[[object], object], start: object):
+        self.fn, self.carry, self.held = fn, start, None
+
+    def __call__(self) -> None:
+        if self.held is None and torch.cuda.is_available() \
+                and torch.cuda.is_current_stream_capturing():
+            self.held = self.carry
+        self.carry = self.fn(self.carry)
+
+
+def graph_ms(step: Callable[[], object], reps: int, device: torch.device,
+             runs: int = 3) -> float:
+    """ms a step: ``reps`` back-to-back calls of ``step`` captured once as
+    a CUDA graph, then the median over ``runs`` replays, each timed by a
+    CUDA-event pair, divided by ``reps``: the card's time for the steps
+    with no host pacing (JAX's in-jit ``fori_loop``). A step that chains
+    keeps its carry where the next call reads it, so the graph chains
+    the ``reps`` steps too.
+
+    ``step`` first runs once eagerly on the capture's side stream, as
+    ``graphs.py`` warms up: that builds the kernels, allocates K2F's
+    per-stream scratch and fills ``geometry.constant``'s cache, none of
+    which a capture allows. A step that reads the host cannot be
+    captured, and the capture raises."""
+    stream = torch.cuda.Stream(device)
+    cur = torch.cuda.current_stream(device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        step()
+    cur.wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            step()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def timed_row(step: Callable[[], object], reps: int, device: torch.device,
+              route: str, runs: int = 3,
+              eager: Optional[Callable[[], object]] = None,
+              graph: bool = True) -> dict:
+    """The row of ``reps`` calls on the card, as the tools print it:
+    ``{"ms", "eager_ms", "host_bound", "route", "reps"}``. ``ms`` is
+    ``step`` as a graph replay (``graph_ms``; the eager reading where
+    ``graph`` is False, for a step that reads the host), ``eager_ms`` and
+    ``host_bound`` are ``eager`` (by default ``step``) from
+    ``per_launch_ms``. On the CPU each step runs once and every reading
+    is None."""
+    eager = eager or step
+    if device.type != "cuda":
+        step()
+        if eager is not step:
+            eager()
+        ms = eager_ms = paced = None
+    else:
+        eager_ms, paced = per_launch_ms(eager, reps, runs)
+        ms = graph_ms(step, reps, device, runs) if graph else eager_ms
+    return {"ms": ms, "eager_ms": eager_ms, "host_bound": paced,
+            "route": route, "reps": reps}
 
 
 def call_ms(fn: Callable[[], object], reps: int, device: torch.device,

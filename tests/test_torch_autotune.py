@@ -252,17 +252,15 @@ def test_scaling_report_prefers_the_block_row():
     assert scaling_report.integration_ms(profile) == 8.0
 
 
-def test_profile_frame_integrate_rows(monkeypatch):
-    """With a block grid, ``tools/profile_frame.py`` adds JAX's
+def test_profile_frame_integrate_rows(monkeypatch, tmp_path):
+    """With a block grid, ``tools/profile_frame.py:op_rows`` adds JAX's
     ``integrate_blocks_<grid>_plus_mip`` row and the live-voxel count
     beside the monolithic row; their times are null on the CPU."""
-    from slambench_tpu_torch.pipeline import KFusion
-    from slambench_tpu_torch.tools.profile_frame import integrate_rows
+    from slambench_tpu_torch.tools.profile_frame import clip_state, op_rows
     monkeypatch.setenv("SLAMBENCH_INTEGRATE_BLOCKS", "4x4x2")
-    kf = KFusion((32, 24), (32,) * 3, (4.8,) * 3, (2.4, 2.4, 0.5),
-                 (1, 1, 1), (30.0, 30.0, 16.0, 12.0), device=CPU)
-    state = kf.init_state()
-    rows = integrate_rows(kf, state, 1)
+    kf, state, depths, _ = clip_state(CPU, 32, (32, 24), 1, 2, 0,
+                                      str(tmp_path))
+    rows = op_rows(kf, state, depths[1], 1)
     assert rows["integrate_plus_mip"] == {"ms": None}
     assert rows["integrate_blocks_4x4x2_plus_mip"] == {"ms": None}
     pop = rows["integrate_population"]
