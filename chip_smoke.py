@@ -74,11 +74,16 @@ no ``ok`` line):
    ``torch.cuda.set_sync_debug_mode("error")``;
 6. resume — frames 0-14 with ``--checkpoint``, then ``--resume`` to
    frame 29: the poses equal phase 4's within 1e-6 m;
-7. oracle + cv — ``--backend jnp --motion-model cv`` on the same clip at
-   full size with KERNEL_TIMINGS=1: tracked from frame 5, ATE mean
-   < 0.06 m, K1F once a frame and K2F once an ICP iteration; the port's
-   ``eval/check_kernels.py`` reads the stderr lines, and the per-kernel
-   means are printed;
+7. KERNEL_TIMINGS route — the phased CLI with KERNEL_TIMINGS=1, which
+   takes ``frontend/timed.py`` (every kernel its own fenced dispatch,
+   the ICP breaking on the host, JAX's rows), on the same clip at full
+   size: (a) ``--backend fast`` (every raycast past frame 2 warm-started)
+   and (b) ``--backend jnp --motion-model cv``; tracked from frame 5, ATE
+   mean < 0.03 m for (a) and < 0.06 m for (b); K1 once a frame and K2
+   once a ``reduce`` row (as many as the ``track`` and ``updatePose``
+   rows), K1F and K2F never; the rows exactly JAX's and the render
+   spans; the port's ``eval/check_kernels.py`` table, the fenced row
+   means and the executed ICP iterations a frame printed;
 8. inputs and observation — (a) the first 12 frames of the clip written
    as an ICL-NUIM scene directory (ASCII euclidean depth, planarized
    back by the reader) with an ``.scf`` file that points at it and sets
@@ -94,9 +99,13 @@ no ``ok`` line):
    distance from phase 4's and the raycasting time beside phase 4's
    printed (JAX's bound is not conservative at its 8x8 block edges, so
    the warm start moves positions by millimetres: PERF.md); (c)
-   phase 7's KERNEL_TIMINGS log has a row for every row name of the JAX
-   route (``eval/check_kernels.missing_rows``), and the K1F / K2F span
-   means are printed beside phase 3's kernel times;
+   frames 0-14 with ``--fused --backend jnp --motion-model cv`` and
+   KERNEL_TIMINGS=1 (the production oracle + cv step under the spans):
+   K1F once a frame, K2F 19 times, tracked from frame 5, ATE mean < 0.06
+   m; its log and both of phase 7's have a row for every row name of the
+   JAX route (``eval/check_kernels.missing_rows``); the K1F / K2F span
+   means and the route's fenced K1 / K2 rows are printed beside phase
+   3's kernel times;
 9. keyframes — (a) a revisiting orbit (640x480, 44 frames, amp 0.3,
    period 22) through the CLI's ``run()`` at phase 4's settings with
    ``--keyframes`` and with ``--keyframes --ba``: both TUM files with a
@@ -117,7 +126,8 @@ no ``ok`` line):
 10. census — ``tools/icp_census.py --device cuda`` over the clip (phase
    4's settings): executed ICP iterations a level and frame (each within
    its budget), the frozen share of the 19 K2F + updatePose launches a
-   frame, K1F once and K2F 19 times a frame;
+   frame, K1F once and K2F 19 times a frame; beside it the iterations a
+   frame that phase 7's route ran;
 11. dashboard — ``frontend/dashboard.py`` served on port 0 over a 6-frame
    clip on the card (started paused, run to frame 4): ``/stats.json``, a
    640x480 ``/tile.png`` (2W x 2H, PNG signature) and a ``/mesh.ply``
@@ -178,7 +188,8 @@ no ``ok`` line):
    stderr); at small reps (``OPS_REPS``), about a minute;
 17. report — one JSON line of kernel results (time, plain and library
    time, bound, launches; with the mesh route's rows "K1, mesh band" and
-   "K2F, mesh row block", and K2's and K2F's ``by_threads``), the
+   "K2F, mesh row block", K2's and K2F's ``by_threads``, and K1's and
+   K2's launches by route and fenced times on phase 7's route), the
    nvidia-smi line, and the final ``{"ok": true, ...}`` line.
 """
 
@@ -215,6 +226,7 @@ SCENE_FRAMES = 12               # phase 8 writes these as a scene directory
 SCENE_BREAK_AT = 10             # ... and runs them with --break-at-frame
 SCENE_CAMERA = "481.2,480,320,240"  # the clip's camera, set by the .scf
 WARM_FRAMES = 15                # phase 8 (b) runs frames 0-14 warm-started
+SPANS_FRAMES = 15               # phase 8 (c): frames 0-14 --fused, spans on
 KF_FRAMES, KF_PERIOD, KF_AMP = 44, 22, 0.3   # phase 9's revisiting orbit
 KF_TAIL = slice(KF_PERIOD, KF_FRAMES)  # frames 22-43, the second lap
 KF_BA_SLACK = 1e-4              # test_ba_backend_beats_posegraph_on_revisit
@@ -1196,19 +1208,39 @@ def phase_resume(dev: torch.device, man: dict, work: str,
             "max_final_pose_diff": d_pose}
 
 
-def phase_oracle_cv(dev: torch.device, man: dict, work: str) -> dict:
-    """The oracle march and the cv warm start at full size, with
-    KERNEL_TIMINGS=1 read back through the port's check_kernels."""
+def route_iterations(err: str, npix: int) -> list:
+    """Executed ICP iterations a frame of the KERNEL_TIMINGS route's
+    stderr, coarsest level first: its ``reduce`` rows by size, a frame
+    starting at each ``mm2meters`` line."""
+    sizes = [npix >> (2 * lv) for lv in reversed(range(len(PYRAMID)))]
+    frames = []
+    for line in err.splitlines():
+        parts = line.split()
+        if len(parts) != 3:
+            continue
+        if parts[0] == "mm2meters":
+            frames.append([0] * len(sizes))
+        elif parts[0] == "reduce" and frames:
+            frames[-1][sizes.index(int(parts[2]))] += 1
+    return frames
+
+
+def timed_route_run(dev: torch.device, man: dict, work: str, name: str,
+                    extra: list, bound: float) -> dict:
+    """One run of the phased CLI with KERNEL_TIMINGS=1, which takes the
+    KERNEL_TIMINGS route (frontend/timed.py): tracked from frame 5, the
+    ATE mean under ``bound``, K1 once a frame, K2 once a ``reduce`` row
+    (as many as ``track`` and ``updatePose`` rows), K1F and K2F never;
+    the log's rows are JAX's (and the render spans)."""
     from slambench_tpu_torch.eval.check_kernels import (
-        aggregate_kernel_log, print_statistics,
+        FUSED_ROWS, JAX_ROWS, aggregate_kernel_log, print_statistics,
     )
     from slambench_tpu_torch.eval.check_pos import (
         compute_ate, load_gt_trajectory, parse_benchmark_log,
     )
 
-    extra = ["--backend", "jnp", "--motion-model", "cv"]
-    log(f"[7/17 oracle + cv] {' '.join(extra)}, KERNEL_TIMINGS=1")
-    log_path = os.path.join(work, "oracle_cv.log")
+    log(f"  ({name}) {' '.join(extra)}, KERNEL_TIMINGS=1")
+    log_path = os.path.join(work, f"timed_{name}.log")
     err = io.StringIO()
     reset_launches()
     os.environ["KERNEL_TIMINGS"] = "1"
@@ -1218,43 +1250,91 @@ def phase_oracle_cv(dev: torch.device, man: dict, work: str) -> dict:
     finally:
         del os.environ["KERNEL_TIMINGS"]
     launches = frame_launches()
+    err = err.getvalue()
     n = summary["frames"]
-    check_frame_launches(launches, n, "oracle + cv path")
     logd = parse_benchmark_log(log_path)
     ate = compute_ate(logd, load_gt_trajectory(man["gt"]))["ATE"]
     tracked = logd["tracked"].astype(int)
-    if not tracked[5:].all():
-        raise RuntimeError(f"oracle + cv: untracked frames >= 5: "
-                           f"{np.nonzero(tracked[5:] == 0)[0] + 5}")
-    if not ate.mean() < CV_ATE_MEAN_BOUND:
-        raise RuntimeError(f"oracle + cv: ATE mean {ate.mean():.5f} m >= "
-                           f"{CV_ATE_MEAN_BOUND}")
-    agg = aggregate_kernel_log(err.getvalue().splitlines())
-    want = {"mm2meters+bilateralFilter": n, "track+reduce": sum(PYRAMID) * n,
-            "updatePose": sum(PYRAMID) * n, "renderDepth": n,
-            "renderTrack": n, "raycast": n - 3,
-            "renderVolume": -(-n // RENDERING_RATE)}
-    counts = {k: len(agg.get(k, ())) for k in want}
-    if counts != want or not {"integrate", "minMip"} <= set(agg):
-        raise RuntimeError(f"KERNEL_TIMINGS lines {counts} (and "
-                           f"{sorted(agg)}), expected {want}")
+    agg = aggregate_kernel_log(err.splitlines())
+    counts = {k: int(v.size) for k, v in agg.items()}
     table = io.StringIO()
     print_statistics(agg, table)
-    log("  KERNEL_TIMINGS (ns, CUDA events, all frames):")
+    log("    KERNEL_TIMINGS (ns, host clock around each fenced dispatch, "
+        "all frames):")
     for line in table.getvalue().splitlines():
-        log("    " + line)
+        log("      " + line)
+    failures = []
+    if n != N_FRAMES or not tracked[5:].all():
+        failures.append(f"{n} frames, untracked frames >= 5: "
+                        f"{np.nonzero(tracked[5:] == 0)[0] + 5}")
+    if not ate.mean() < bound:
+        failures.append(f"ATE mean {ate.mean():.5f} m >= {bound}")
+    want = {"K1": n, "K1F": 0, "K2": counts.get("reduce", -1), "K2F": 0}
+    if launches != want or not (counts.get("reduce") == counts.get("track")
+                                == counts.get("updatePose")):
+        failures.append(f"launches {launches}, expected {want}; rows "
+                        f"{counts}")
+    render = {"renderDepth", "renderTrack", "renderVolume"}
+    if set(agg) - render != set(JAX_ROWS) or set(FUSED_ROWS) & set(agg):
+        failures.append(f"rows {sorted(agg)}, expected JAX's "
+                        f"{list(JAX_ROWS)} and the render spans")
+    fixed = {"mm2meters": n, "bilateralFilter": n, "checkPose": n,
+             "raycast": n - 3}
+    if {k: counts.get(k) for k in fixed} != fixed:
+        failures.append(f"rows {counts}, expected {fixed}")
+    kf = summary["kfusion"]
+    npix = kf.H * kf.W
+    iters = route_iterations(err, npix)
+    if failures:
+        raise RuntimeError(f"timed route ({name}): " + "; ".join(failures))
     steady = slice(5, None)
     ms = {k: 1e3 * float(np.mean(np.asarray(summary[k])[steady]))
-          for k in ("preprocessing", "tracking", "integration",
-                    "raycasting", "rendering", "computation", "total")}
-    log(f"  ATE mean {ate.mean():.5f} m, max {ate.max():.5f} m; tracked "
+          for k in ("rendering", "computation", "total")}
+    comp = 1e3 * np.asarray(summary["computation"])[steady]
+    ms.update(computation_median=float(np.median(comp)),
+              computation_p90=float(np.percentile(comp, 90)))
+    reduce_us = {}
+    sizes = {npix >> (2 * lv): f"{kf.H >> lv}x{kf.W >> lv}"
+             for lv in range(len(PYRAMID))}
+    for line in err.splitlines():
+        parts = line.split()
+        if len(parts) == 3 and parts[0] == "reduce":
+            reduce_us.setdefault(sizes[int(parts[2])], []).append(
+                1e-3 * float(parts[1]))
+    rows_us = {"bilateralFilter": 1e-3 * float(agg["bilateralFilter"].mean()),
+               "reduce": {k: float(np.mean(v)) for k, v in reduce_us.items()},
+               "track": 1e-3 * float(agg["track"].mean()),
+               "updatePose": 1e-3 * float(agg["updatePose"].mean()),
+               "raycast": 1e-3 * float(agg["raycast"].mean())}
+    per_frame = [sum(f) for f in iters]
+    log(f"    ATE mean {ate.mean():.5f} m, max {ate.max():.5f} m; tracked "
         f"{int(tracked.sum())}/{n}; launches {launches}")
-    log("  steady-state (frames 5..) ms: " + ", ".join(
+    log("    steady-state (frames 5..) ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in ms.items()))
+    log(f"    fenced row means (us): {json.dumps(rows_us)}")
+    log(f"    executed ICP iterations a frame (of {sum(PYRAMID)}): mean "
+        f"{np.mean(per_frame[4:]):.2f} over frames 4..; coarse/mid/fine "
+        f"by frame: {iters}")
     return {"launches": launches, "ate_mean": float(ate.mean()),
-            "ate_max": float(ate.max()), "ms": ms,
+            "ate_max": float(ate.max()), "ms": ms, "rows_us": rows_us,
+            "iterations": iters,
+            "iterations_mean_steady": float(np.mean(per_frame[4:])),
             "kernel_mean_ns": {k: float(v.mean()) for k, v in agg.items()},
-            "kernel_count": {k: int(v.size) for k, v in agg.items()}}
+            "kernel_count": counts}
+
+
+def phase_timed_route(dev: torch.device, man: dict, work: str) -> dict:
+    """The KERNEL_TIMINGS route at full size, (a) on ``fast`` (every
+    raycast past frame 2 warm-started) and (b) on ``jnp`` with the cv
+    warm start; K1 and K2 are its ``bilateralFilter`` and ``reduce``
+    dispatches."""
+    log("[7/17 KERNEL_TIMINGS route] frontend/timed.py through the phased "
+        "CLI with KERNEL_TIMINGS=1 on the traj2-like clip")
+    return {"fast": timed_route_run(dev, man, work, "fast",
+                                    ["--backend", "fast"], ATE_MEAN_BOUND),
+            "jnp_cv": timed_route_run(dev, man, work, "jnp_cv",
+                                      ["--backend", "jnp", "--motion-model",
+                                       "cv"], CV_ATE_MEAN_BOUND)}
 
 
 def write_scene_dir(man: dict, scene_dir: str, n: int) -> list:
@@ -1297,11 +1377,55 @@ def stat_line(err: str, key: str) -> dict:
     raise RuntimeError(f"--stats: no {key} series in the stats block")
 
 
+def fused_spans_run(dev: torch.device, man: dict, work: str) -> dict:
+    """The first SPANS_FRAMES frames with ``--fused --backend jnp
+    --motion-model cv`` and KERNEL_TIMINGS=1: the production step (the
+    oracle march, the cv warm start) under the spans of utils/timers.py;
+    K1F once a frame and K2F once an ICP iteration, tracked from frame
+    5, the ATE mean under CV_ATE_MEAN_BOUND."""
+    from slambench_tpu_torch.eval.check_kernels import aggregate_kernel_log
+    from slambench_tpu_torch.eval.check_pos import (
+        compute_ate, load_gt_trajectory, parse_benchmark_log,
+    )
+    log_path = os.path.join(work, "fused_spans.log")
+    err = io.StringIO()
+    reset_launches()
+    os.environ["KERNEL_TIMINGS"] = "1"
+    try:
+        with contextlib.redirect_stderr(err):
+            run_cli(man, dev, log_path, ["--backend", "jnp",
+                                         "--motion-model", "cv"],
+                    fused=True, max_frames=SPANS_FRAMES)
+    finally:
+        del os.environ["KERNEL_TIMINGS"]
+    launches = frame_launches()
+    check_frame_launches(launches, SPANS_FRAMES, "--fused spans path")
+    logd = parse_benchmark_log(log_path)
+    ate = compute_ate(logd, load_gt_trajectory(man["gt"]))["ATE"]
+    tracked = logd["tracked"].astype(int)
+    if not tracked[5:].all() or not ate.mean() < CV_ATE_MEAN_BOUND:
+        raise RuntimeError(f"--fused jnp + cv: tracked {tracked.tolist()}, "
+                           f"ATE mean {ate.mean():.5f} m (bound "
+                           f"{CV_ATE_MEAN_BOUND})")
+    agg = aggregate_kernel_log(err.getvalue().splitlines())
+    comp = 1e3 * logd["computation"][5:]
+    log(f"  (c) --fused jnp + cv spans run, frames 0-{SPANS_FRAMES - 1}: "
+        f"ATE mean {ate.mean():.5f} m, tracked {int(tracked.sum())}/"
+        f"{SPANS_FRAMES}, launches {launches}, computation "
+        f"{comp.mean():.3f} ms a frame (frames 5..)")
+    return {"launches": launches, "ate_mean": float(ate.mean()),
+            "computation_ms": float(comp.mean()),
+            "kernel_mean_ns": {k: float(v.mean()) for k, v in agg.items()},
+            "kernel_count": {k: int(v.size) for k, v in agg.items()}}
+
+
 def phase_inputs(dev: torch.device, man: dict, work: str, main: dict,
-                 oracle: dict, kernels: dict, smi: str) -> dict:
+                 route: dict, kernels: dict, smi: str) -> dict:
     """(a) the scene and .scf inputs through the CLI with --stats,
     --debug-nans, --report-device and --break-at-frame; (b) the warm
-    start against phase 4; (c) phase 7's KERNEL_TIMINGS row set."""
+    start against phase 4; (c) the KERNEL_TIMINGS row sets of phase 7's
+    route and of a --fused spans run, and both routes' kernel rows
+    beside phase 3's kernel times."""
     from slambench_tpu_torch.eval.check_kernels import missing_rows
     from slambench_tpu_torch.eval.check_pos import (
         compute_ate, load_gt_trajectory, parse_benchmark_log,
@@ -1463,24 +1587,37 @@ def phase_inputs(dev: torch.device, man: dict, work: str, main: dict,
         f"frames 3-{WARM_FRAMES - 1}: warm {warm_ms:.3f} ms, phase 4 "
         f"{cold_ms:.3f} ms a frame")
 
-    missing = missing_rows(oracle["kernel_mean_ns"])
-    if missing:
-        failures.append(f"phase 7's KERNEL_TIMINGS log lacks the JAX rows "
-                        f"{missing}")
-    spans = {"K1F": oracle["kernel_mean_ns"]["mm2meters+bilateralFilter"]
+    spans_run = fused_spans_run(dev, man, work)
+    missing = {name: missing_rows(r["kernel_mean_ns"]) for name, r in
+               (("route fast", route["fast"]),
+                ("route jnp + cv", route["jnp_cv"]),
+                ("--fused spans", spans_run))}
+    if any(missing.values()):
+        failures.append(f"KERNEL_TIMINGS logs lack JAX rows: {missing}")
+    spans = {"K1F": spans_run["kernel_mean_ns"]["mm2meters+bilateralFilter"]
              * 1e-3,
-             "K2F": oracle["kernel_mean_ns"]["track+reduce"] * 1e-3}
+             "K2F": spans_run["kernel_mean_ns"]["track+reduce"] * 1e-3}
+    fenced = {f"K1 ({name})": route[key]["rows_us"]["bilateralFilter"]
+              for key, name in (("fast", "fast"), ("jnp_cv", "jnp + cv"))}
+    fenced.update({f"K2 240x320 ({name})":
+                   route[key]["rows_us"]["reduce"]["240x320"]
+                   for key, name in (("fast", "fast"),
+                                     ("jnp_cv", "jnp + cv"))})
     own = {"K1F": kernels["k1f"]["ms"] * 1e3,
-           "K2F": kernels["k2f"]["by_shape"]["240x320"]["ms"] * 1e3}
-    log(f"  (c) JAX rows missing from phase 7's log: {missing}; span "
-        f"means K1F {spans['K1F']:.2f} us, K2F {spans['K2F']:.2f} us (all "
-        f"levels) "
-        f"beside the kernels' own K1F {own['K1F']:.2f} us, K2F "
-        f"{own['K2F']:.2f} us (level 0)")
+           "K2F": kernels["k2f"]["by_shape"]["240x320"]["ms"] * 1e3,
+           "K1": kernels["k1"]["ms"] * 1e3,
+           "K2 240x320": kernels["k2"]["by_shape"]["240x320"]["ms"] * 1e3}
+    log(f"      JAX rows missing: {missing}; --fused span means K1F "
+        f"{spans['K1F']:.2f} us, K2F {spans['K2F']:.2f} us (all levels); "
+        f"the route's fenced rows (host clock, launch + synchronize): "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in fenced.items())
+        + "; beside the kernels' own (phase 3): "
+        + ", ".join(f"{k} {v:.3f} us" for k, v in own.items()))
     if failures:
         raise RuntimeError("; ".join(failures))
-    return {"scene": scene, "warm_start": warm,
-            "span_mean_us": spans, "kernel_us": own}
+    return {"scene": scene, "warm_start": warm, "fused_spans": spans_run,
+            "span_mean_us": spans, "route_fenced_us": fenced,
+            "kernel_us": own}
 
 
 class KeyframeTally:
@@ -1885,10 +2022,12 @@ def phase_keyframes(dev: torch.device, work: str, main: dict) -> dict:
             "k2f_snapshot": snapshot}
 
 
-def phase_census(dev: torch.device, man: dict, work: str) -> dict:
+def phase_census(dev: torch.device, man: dict, work: str,
+                 route: dict) -> dict:
     """tools/icp_census.py on the card over the clip: executed ICP
     iterations a level and frame, and the frozen share of the 19 K2F +
-    updatePose launches a frame."""
+    updatePose launches a frame; beside them the iterations that phase
+    7's route ran (its host-side break)."""
     from slambench_tpu_torch.tools import icp_census
 
     log(f"[10/17 census] tools/icp_census.py --device cuda on the "
@@ -1923,6 +2062,13 @@ def phase_census(dev: torch.device, man: dict, work: str) -> dict:
         f"iterations run a frame; frozen K2F launches a frame "
         f"{res['frozen_k2f_per_frame_mean']} (share "
         f"{res['frozen_share']}); launches {launches}; {wall:.2f} s")
+    res["route_iterations_mean"] = {
+        k: route[k]["iterations_mean_steady"] for k in ("fast", "jnp_cv")}
+    log(f"  beside phase 7's route (K2 launches a frame = iterations run, "
+        f"frames 4..): fast (warm-started raycast) "
+        f"{res['route_iterations_mean']['fast']:.2f}, jnp + cv "
+        f"{res['route_iterations_mean']['jnp_cv']:.2f}; the census "
+        f"(production, frames 4..) {res['total_iters_mean']}")
     res["launches"] = launches
     return res
 
@@ -2623,13 +2769,13 @@ def main() -> int:
         done("scan")
         rs = phase_resume(dev, man, work, mp)
         done("resume")
-        oc = phase_oracle_cv(dev, man, work)
-        done("oracle + cv")
-        io_ = phase_inputs(dev, man, work, mp, oc, kr, smi)
+        tr = phase_timed_route(dev, man, work)
+        done("KERNEL_TIMINGS route")
+        io_ = phase_inputs(dev, man, work, mp, tr, kr, smi)
         done("inputs")
         kfp = phase_keyframes(dev, work, mp)
         done("keyframes")
-        cen = phase_census(dev, man, work)
+        cen = phase_census(dev, man, work, tr)
         done("census")
         dsh = phase_dashboard(dev, work)
         done("dashboard")
@@ -2646,16 +2792,28 @@ def main() -> int:
     k1, k1f, k2, k2f = kr["k1"], kr["k1f"], kr["k2"], kr["k2f"]
     k2_0 = k2["by_shape"]["240x320"]
     k2f_0 = k2f["by_shape"]["240x320"]
+    # K1 and K2 on the KERNEL_TIMINGS route (phase 7, both runs), each
+    # run's counts reset before it and read after it; also on the probe
+    # path (phase 13).
+    by_route = {
+        k: {"timed fast": tr["fast"]["launches"][k],
+            "timed jnp + cv": tr["jnp_cv"]["launches"][k],
+            "probe path": pr["launches"][k]} for k in ("K1", "K2")}
     rows = [
-        # The frame path runs K1F (K1's launches there are 0, asserted in
-        # phase 4); the metre-in K1 runs on the probe path.
+        # The production frame path runs K1F (K1's launches there are 0,
+        # asserted in phase 4); the metre-in K1 runs on the route.
         {"name": "K1 bilateral_filter", "route": "cuda",
          "source": "slambench_tpu_torch/ops/hopper/csrc/bilateral.cu",
          "replaces": "slambench_tpu/ops/pallas/bilateral.py:64",
-         "launches": pr["launches"]["K1"], "max_abs_err": k1["max_abs_err"],
+         "launches": by_route["K1"]["timed fast"]
+         + by_route["K1"]["timed jnp + cv"],
+         "launches_by_route": by_route["K1"],
+         "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "route_fenced_ms": {k: v["rows_us"]["bilateralFilter"] * 1e-3
+                             for k, v in tr.items()}},
         {"name": "K1F mm2m_bilateral (mm2meters fused into K1)",
          "route": "cuda",
          "source": "slambench_tpu_torch/ops/hopper/csrc/bilateral.cu",
@@ -2666,15 +2824,21 @@ def main() -> int:
          "ms": k1f["ms"], "plain_ms": k1f["plain_ms"],
          "bound_ms": k1f["bound_ms"], "bound_by": k1f["bound_by"],
          "library_ms": None},
-        # The frame path runs K2F (K2's launches there are 0, asserted in
-        # phase 4); the unfused K2 runs on the probe path.
+        # The production frame path runs K2F (K2's launches there are 0,
+        # asserted in phase 4); the unfused K2 runs on the route.
         {"name": "K2 reduce_track", "route": "cuda",
          "source": "slambench_tpu_torch/ops/hopper/csrc/reduce.cu",
          "replaces": "slambench_tpu/ops/pallas/reduce.py:87",
-         "launches": pr["launches"]["K2"], "max_abs_err": k2["max_abs_err"],
+         "launches": by_route["K2"]["timed fast"]
+         + by_route["K2"]["timed jnp + cv"],
+         "launches_by_route": by_route["K2"],
+         "max_abs_err": k2["max_abs_err"],
          "ms": k2_0["ms"], "plain_ms": k2_0["plain_ms"],
          "bound_ms": k2_0["bound_ms"], "bound_by": k2_0["bound_by"],
-         "library_ms": None, "by_threads": k2["by_threads"]},
+         "library_ms": None, "by_threads": k2["by_threads"],
+         "route_fenced_ms": {k: {s: us * 1e-3 for s, us in
+                                 v["rows_us"]["reduce"].items()}
+                             for k, v in tr.items()}},
         {"name": "K2F track_reduce (track fused into K2)", "route": "cuda",
          "source": "slambench_tpu_torch/ops/hopper/csrc/reduce.cu",
          "replaces": "slambench_tpu/ops/pallas/reduce.py:87",
@@ -2751,7 +2915,7 @@ def main() -> int:
                  if k not in ("positions", "final_pose", "raycasting_s",
                               "ate_by_frame")}
     log(json.dumps({"main_path": mp_report, "scan": sc, "resume": rs,
-                    "oracle_cv": oc,
+                    "timed_route": tr,
                     "inputs": io_, "keyframes": kfp, "census": cen,
                     "dashboard": dsh,
                     "mesh": {k: v for k, v in msh.items() if k != "kernels"},

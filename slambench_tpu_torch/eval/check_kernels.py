@@ -4,15 +4,17 @@ nothing of the JAX package).
 
 Re-implementation of the reference's kernel-log aggregator
 (reference: kfusion/thirdparty/checkKernels.py): parses lines of
-``kernelName duration_ns [size]`` (produced with KERNEL_TIMINGS set by
-``slambench_tpu_torch.utils.timers``), unifies backend-specific
-kernel-name variants (reference: checkKernels.py:16-32) and prints
-count/min/max/mean per kernel. The port's two fused kernels give one
-row each for a pair of the reference's rows; the table says which pair
-(on the card their spans are events that the kernels' C entry points
-record right around the launch, so a span holds the launch's latency
-and the kernel), and ``missing_rows`` checks a log against the row set
-of the JAX package's KERNEL_TIMINGS route.
+``kernelName duration_ns [size]`` (produced with KERNEL_TIMINGS set:
+on the phased CLI by ``frontend/timed.py``, the reference's rows with K1
+and K2 as ``bilateralFilter`` and ``reduce``; on the other routes by
+``utils/timers.py``'s spans), unifies backend-specific kernel-name
+variants (reference: checkKernels.py:16-32) and prints
+count/min/max/mean per kernel. On the spans' routes the port's two
+fused kernels give one row each for a pair of the reference's rows; the
+table says which pair (on the card their spans are events that the
+kernels' C entry points record right around the launch, so a span holds
+the launch's latency and the kernel), and ``missing_rows`` checks a log
+against the row set of the JAX package's KERNEL_TIMINGS route.
 
 CLI: ``python -m slambench_tpu_torch.eval.check_kernels <kernels.log>``.
 """

@@ -4,21 +4,30 @@
 Reads depth frames, runs the four phases, renders the diagnostic
 images, and writes the reference's 14-column TSV log that
 ``eval/check_pos.py`` reads (reference: kfusion/src/benchmark.cpp:47-190).
-Two timing modes:
+Three timing modes:
 
   * phased (default): ``torch.cuda.synchronize()`` before every
     timestamp, the reference's ``synchroniseDevices()`` per phase;
   * fused (``--fused``): one fence for the frame's computation;
-    per-phase columns are 0 and ``computation`` holds the frame.
+    per-phase columns are 0 and ``computation`` holds the frame;
+  * timed (phased with KERNEL_TIMINGS set, and not ``xprof``; no
+    ``--fused``, ``--keyframes`` or ``--mesh``): ``frontend/timed.py:
+    TimedRunner`` runs the frame kernel by kernel, each dispatch fenced
+    and printed to stderr as a ``name ns size`` line under the
+    reference's names, with K1 and K2 as the ``bilateralFilter`` and
+    ``reduce`` dispatches and the ICP breaking on the host (JAX's
+    route); per-phase columns are 0 and ``computation`` holds the frame.
 
-In both, the rendering phase (the depth and track images every frame,
-the shaded volume every ``rendering_rate`` frames) is fenced on its own
-and written to the ``rendering`` column; ``total`` includes it.
+In all three, the rendering phase (the depth and track images every
+frame, the shaded volume every ``rendering_rate`` frames) is fenced on
+its own and written to the ``rendering`` column; ``total`` includes it.
 ``--checkpoint FILE`` saves the state after the loop and ``--resume
 FILE`` continues from one (the JAX package's ``.npz``; either package's
-file loads in the other). With KERNEL_TIMINGS set, each frame's kernel
-spans go to stderr as ``name ns size`` lines
-(``eval/check_kernels.py`` reads them).
+file loads in the other). With KERNEL_TIMINGS set on the other routes,
+each frame's kernel spans (``utils/timers.py``: CUDA events around the
+production dispatches) go to stderr as ``name ns size`` lines; the
+render spans print after a frame's lines on every route, the timed one
+included (``eval/check_kernels.py`` reads them all).
 
 Observation flags, as in the JAX CLI:
 
@@ -122,6 +131,7 @@ from slambench_tpu_torch.config import Configuration, parse_args
 from slambench_tpu_torch.ops.hopper import bilateral, reduce
 from slambench_tpu_torch.eval import xprof2log
 from slambench_tpu_torch.eval.trajectory import write_tum
+from slambench_tpu_torch.frontend.timed import TimedRunner
 from slambench_tpu_torch.io.readers import make_reader
 from slambench_tpu_torch.models.keyframes import (
     KeyframeStore, PoseGraphKFusion,
@@ -271,6 +281,11 @@ def _run(config: Configuration, device: torch.device, mesh: Optional[Mesh],
                                     or break_at_frame is not None),
                             debug_nans=debug_nans)
     xprof = XprofTrace(device) if xprof_enabled() else None
+    # KERNEL_TIMINGS on the phased single-device route: every kernel its
+    # own fenced dispatch (the JAX CLI's gate, frontend/benchmark.py:
+    # 143-147).
+    timed = (TimedRunner(kf) if spans_enabled() and mesh is None
+             and not fused and pgkf is None else None)
     if mesh is not None and primary:
         route = ("CUDA graph replays" if kf._graph_route() else
                  "eager chunks (the group's collectives are host calls)")
@@ -377,6 +392,7 @@ def _run(config: Configuration, device: torch.device, mesh: Optional[Mesh],
             written = []
             t1 = fence()
             path = ("keyframes" if pgkf is not None else
+                    "timed" if timed is not None else
                     "fused" if fused else "phased")
             # Never a bootstrap frame (forced integrate, no raycast before
             # frame 3): an unrepresentative window.
@@ -389,6 +405,14 @@ def _run(config: Configuration, device: torch.device, mesh: Optional[Mesh],
                 state = pgkf.process_frame(state, depth, frame,
                                            config.tracking_rate,
                                            config.integration_rate)
+                t5 = fence()
+                t2 = t3 = t4 = t1
+                written.append(("the frame", before, state))
+            elif timed is not None:
+                before = state
+                state = timed.process_frame(state, depth, frame,
+                                            config.tracking_rate,
+                                            config.integration_rate)
                 t5 = fence()
                 t2 = t3 = t4 = t1
                 written.append(("the frame", before, state))

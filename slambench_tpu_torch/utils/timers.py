@@ -23,6 +23,14 @@ With the variable unset, or set to ``xprof`` (the device-trace route of
 ``frontend/benchmark.py``, which times no span), a span is a shared
 no-op context (``NULL_SPAN``): nothing is recorded and nothing is
 printed.
+
+``KernelTimer`` and ``timed`` are the reference's own contract, as the
+JAX package has them (``slambench_tpu/utils/timers.py``): the host clock
+around one dispatch, a device fence on its result at the end (the CUDA
+TOCK's ``cudaDeviceSynchronize``, reference: cuda/kernels.cu:23-38) and
+the line printed at once. ``frontend/timed.py`` times every kernel of
+its frame that way; the fence serialises the host and the card, so the
+time holds the launch and the fence's round trip.
 """
 
 from __future__ import annotations
@@ -30,9 +38,14 @@ from __future__ import annotations
 import os
 import sys
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
+
+
+def kernel_timings_enabled() -> bool:
+    """KERNEL_TIMINGS env gate (reference: cpp/kernels.cpp:69-70)."""
+    return bool(os.environ.get("KERNEL_TIMINGS"))
 
 
 def spans_enabled() -> bool:
@@ -144,3 +157,62 @@ class _Span:
         start, end = self.owner._event_pair()
         self.owner._spans.append((self.name, self.size, start, end))
         return start.cuda_event, end.cuda_event
+
+
+def _cuda_device_of(value) -> Optional[torch.device]:
+    """The device of the first CUDA tensor in ``value`` (a tensor, or a
+    tuple, list or dict of them), else None."""
+    if isinstance(value, torch.Tensor):
+        return value.device if value.is_cuda else None
+    if isinstance(value, dict):
+        value = list(value.values())
+    if isinstance(value, (tuple, list)):
+        for item in value:
+            device = _cuda_device_of(item)
+            if device is not None:
+                return device
+    return None
+
+
+class KernelTimer:
+    """``with KernelTimer("track", size) as t: t.result = fn()`` prints
+    ``track <ns> <size>`` to stderr when enabled, after fencing the
+    device that holds the assigned result.
+
+    Assign the value to be fenced to ``.result`` inside the block (or it
+    times only the host's dispatch, like an unfenced TOCK). On the CPU the
+    ops run synchronously and the host clock alone is read.
+    """
+
+    def __init__(self, name: str, size: int = 0, stream=None,
+                 enabled: Optional[bool] = None):
+        self.name = name
+        self.size = size
+        self.stream = stream if stream is not None else sys.stderr
+        self.enabled = (kernel_timings_enabled()
+                        if enabled is None else enabled)
+        self.result = None
+        self.elapsed_ns = 0
+
+    def __enter__(self):
+        if self.enabled:
+            self._t0 = time.monotonic_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if not self.enabled:
+            return False
+        device = _cuda_device_of(self.result)
+        if device is not None:
+            torch.cuda.synchronize(device)
+        self.elapsed_ns = time.monotonic_ns() - self._t0
+        print(f"{self.name} {self.elapsed_ns} {self.size}",
+              file=self.stream)
+        return False
+
+
+def timed(name: str, fn, *args, size: int = 0, **kwargs):
+    """Run ``fn`` under a KernelTimer, fencing its output."""
+    with KernelTimer(name, size) as t:
+        t.result = fn(*args, **kwargs)
+    return t.result

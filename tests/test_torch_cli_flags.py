@@ -2,9 +2,9 @@
 ``--break-on-untracked``, ``--debug-nans`` (the clean clip's outcome is
 the JAX CLI's: every frame runs, no fault; a NaN names its phase),
 ``--report-device``, ``--stats``; and the KERNEL_TIMINGS row set: a log
-of the port, read by ``eval/check_kernels.py``, has a row for every row
-name of the JAX package's route, the fused rows standing for their
-pairs."""
+of the port's ``--fused`` spans, read by ``eval/check_kernels.py``, has a
+row for every row name of the JAX package's route, the fused rows
+standing for their pairs."""
 
 import dataclasses
 import io
@@ -149,11 +149,12 @@ def test_stats_prints_both_tables(clip, tmp_path, capsys):
 
 
 def test_kernel_timings_row_set(clip, tmp_path, monkeypatch, capsys):
-    """KERNEL_TIMINGS=1 over 6 frames: a row for every JAX row name, K1F
-    once a frame, and the analyser saying which pair each fused row
-    stands for."""
+    """KERNEL_TIMINGS=1 with --fused (the spans' route; the phased one
+    is tests/test_torch_timed.py's) over 6 frames: a row for every JAX
+    row name, K1F once a frame, and the analyser saying which pair each
+    fused row stands for."""
     monkeypatch.setenv("KERNEL_TIMINGS", "1")
-    rc, _ = _main(clip, tmp_path, "--break-at-frame", "5")
+    rc, _ = _main(clip, tmp_path, "--fused", "--break-at-frame", "5")
     assert rc == 0
     agg = aggregate_kernel_log(capsys.readouterr().err.splitlines())
     assert missing_rows(agg) == []

@@ -3,8 +3,9 @@ K2 and K2F (track fused into K2, both at every threads-a-block count)
 against their plain twins at the main path's shapes, one ICP level with no host read, mm2meters as IEEE
 division, G1-G4 against their twins at the gather probes' shapes and on
 the edge cases of the redesigned kernels (out-of-range indices as the
-Pallas bodies treat them, G4's two routes), and a short end-to-end run
-through the CLI.
+Pallas bodies treat them, G4's two routes), and short end-to-end runs
+through the CLI (production, and the KERNEL_TIMINGS route with K1 and
+K2).
 
 Imports torch and the port only (no JAX), so it runs on the card's
 machine, where JAX is absent, with
@@ -319,6 +320,38 @@ def test_cli_on_card(dev, tmp_path):
     run(cfg, dev, quiet=True)
     assert bilateral.fused_launches == 12 and bilateral.launches == 0
     assert reduce.fused_launches == 12 * 19 and reduce.launches == 0
+    log = parse_benchmark_log(log_path)
+    assert log["tracked"][4:].all()
+    assert compute_ate(log, load_gt_trajectory(man["gt"]))["ATE"].mean() < 0.06
+
+
+def test_timed_route_on_card(dev, tmp_path, monkeypatch):
+    """The phased CLI with KERNEL_TIMINGS=1 takes frontend/timed.py: 10
+    frames of the 160x120 clip at 64^3 with K1 once a frame and K2 once
+    a ``reduce`` row, K1F and K2F never; tracked from frame 4."""
+    import contextlib
+    from slambench_tpu_torch.config import parse_args
+    from slambench_tpu_torch.eval.check_kernels import aggregate_kernel_log
+    from slambench_tpu_torch.eval.check_pos import (
+        compute_ate, load_gt_trajectory, parse_benchmark_log,
+    )
+    from slambench_tpu_torch.frontend.benchmark import run
+    man = generate_dataset(str(tmp_path), dev, n_frames=10,
+                           image_size=(160, 120), amp=0.12)
+    log_path = str(tmp_path / "b.log")
+    cfg = parse_args(["-i", man["raw"], "-o", log_path, "-v", "64",
+                      "-s", "4.8", "-p", "0.34,0.5,0.24", "-c", "1", "-r", "1",
+                      "-k", "120.3,120.0,80,60", "--backend", "fast"])
+    monkeypatch.setenv("KERNEL_TIMINGS", "1")
+    bilateral.launches = bilateral.fused_launches = 0
+    reduce.launches = reduce.fused_launches = 0
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        run(cfg, dev, quiet=True)
+    agg = aggregate_kernel_log(err.getvalue().splitlines())
+    assert bilateral.launches == len(agg["bilateralFilter"]) == 10
+    assert reduce.launches == len(agg["reduce"]) == len(agg["track"]) > 0
+    assert bilateral.fused_launches == reduce.fused_launches == 0
     log = parse_benchmark_log(log_path)
     assert log["tracked"][4:].all()
     assert compute_ate(log, load_gt_trajectory(man["gt"]))["ATE"].mean() < 0.06

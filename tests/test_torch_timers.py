@@ -1,8 +1,11 @@
-"""The port's KERNEL_TIMINGS route (``slambench_tpu_torch/utils/
-timers.py``): the reference's ``name duration_ns size`` line, a CPU run
-of the port's CLI whose stderr the port's ``eval/check_kernels.py``
-reads (one K1F span a frame, one K2F and one solve span per ICP
-iteration), and silence with the variable unset."""
+"""The port's KERNEL_TIMINGS spans (``slambench_tpu_torch/utils/
+timers.py:KernelTimings``): the reference's ``name duration_ns size``
+line, a CPU run of the port's CLI with ``--fused`` (where the spans
+time the production dispatches; the phased route takes
+``frontend/timed.py``, tests/test_torch_timed.py) whose stderr the
+port's ``eval/check_kernels.py`` reads (one K1F span a frame, one K2F
+and one solve span per ICP iteration), and silence with the variable
+unset."""
 
 import contextlib
 import io
@@ -59,7 +62,7 @@ def _run_cli(man, tmp_path, monkeypatch, value):
                       "-k", "60.15,60.0,40,30"])
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        run(cfg, CPU, quiet=True)
+        run(cfg, CPU, fused=True, quiet=True)
     return err.getvalue()
 
 
