@@ -1,0 +1,6 @@
+"""Device ms a frame of ``KFusion.tracking``, captured as a CUDA graph of
+its own and replayed in turn with the other phases (``phases.py``)."""
+
+
+def read(ctx):
+    return ctx.get("phase_ms", {}).get("tracking")
